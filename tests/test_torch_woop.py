@@ -1,0 +1,239 @@
+"""The port's intersection (dense Moller-Trumbore and the Woop kernels'
+plain versions) against mcpt_tpu's, on the CPU.
+
+The Woop contract is tests/test_woop.py's for the fused kernel: triangle
+ids agree on > 99 % of rays (rounding may flip knife-edge rays) and u, v
+are >= -1e-6 where they agree. The JAX kernel's projection is an XLA matmul
+that sums in its own order, so values differ by a few ulps of the projected
+coordinates, not of t: t is held to rtol 1e-6 plus 1e-6 of the scene
+diagonal, u and v (up to ~100 before the subtraction for small triangles
+seen from afar) to 1e-4 absolute.
+"""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tests.test_intersect import _random_tri_scene
+from tests.torch_parity import to_numpy, torch_scene
+
+F32_MAX = float(np.finfo(np.float32).max)
+
+
+def _rays(rng, R, lo=-2.0, hi=2.0):
+    o = rng.uniform(lo, hi, (R, 3)).astype(np.float32)
+    d = rng.normal(size=(R, 3))
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    return o, d
+
+
+def _veach_rays(scene, rng, R=2048):
+    """64x16 camera rays (image-coherent tiles), random interior rays, two
+    parked lanes and a masked ray."""
+    from mcpt_tpu.render.camera import generate_rays
+
+    lo, hi = np.asarray(scene.geom.v0).min(0), np.asarray(scene.geom.v0).max(0)
+    o, d = _rays(rng, R)
+    o = (lo + (hi - lo) * rng.random((R, 3))).astype(np.float32)
+    cam = dataclasses.replace(scene.camera, width=64, height=16)
+    co, cd = generate_rays(cam, jnp.asarray(rng.random((1024, 2)), jnp.float32))
+    o[:1024], d[:1024] = np.asarray(co), np.asarray(cd)
+    o[5] = o[700] = 1e30
+    t_max = rng.uniform(0.5, 40.0, R).astype(np.float32)
+    t_max[9] = 0.0
+    return o, d, t_max
+
+
+def _jax_layout(ws):
+    """The port's WoopSet in mcpt_tpu's TPU layout: tbl f32[8, n_chunks*6*chunk]
+    (the [T,6,8] matmul block, chunk- then component-major), eps widened to
+    [8, Tp], boxes f32[8, 128] (lo.xyz hi.xyz valid pad, one column a chunk)."""
+    tbl = to_numpy(ws.tbl)
+    Tp = tbl.shape[1]
+    wp = tbl.T.reshape(Tp, 3, 4)
+    blk = np.zeros((Tp, 6, 8), np.float32)
+    blk[:, 0:3, 0:4] = wp
+    blk[:, 3:6, 4:7] = wp[:, :, 0:3]
+    jtbl = blk.reshape(ws.n_chunks, ws.chunk, 6, 8).transpose(3, 0, 2, 1).reshape(8, -1)
+    boxes = np.zeros((8, 128), np.float32)
+    boxes[0:3], boxes[3:6] = F32_MAX, -F32_MAX
+    boxes[0:6, :ws.n_chunks] = to_numpy(ws.boxes).T
+    boxes[6, :ws.n_chunks] = 1.0
+    eps = {e: np.broadcast_to(to_numpy(x), (8, Tp)) for e, x in ((1e-5, ws.eps_closest), (1e-6, ws.eps_any))}
+    return jtbl, eps, boxes
+
+
+@pytest.mark.parametrize("which", ["random", "veach"])
+def test_pack_woop_table_matches_jax(rng, veach_scene, which):
+    """tbl, eps, boxes and the chunk count, laid out as mcpt_tpu lays them
+    out, equal mcpt_tpu's, except row 3 of tbl: p = -W v0 is a 3-term dot
+    product that XLA sums in its own order, so it is held to 4 ulps of the
+    largest |W||v0| term."""
+    from mcpt_tpu.ops.pallas.woop import _auto_chunk, pack_woop_table as jpack
+    from mcpt_tpu_torch.ops.woop import auto_chunk, pack_woop_table as tpack
+
+    if which == "random":
+        _, v0, e1, e2 = _random_tri_scene(rng, 600)
+        v0, e1, e2 = (np.asarray(x, np.float32) for x in (v0, e1, e2))
+    else:
+        g = veach_scene.geom
+        v0, e1, e2 = (np.array(x) for x in (g.v0, g.e1, g.e2))
+    chunk = _auto_chunk(v0.shape[0])
+    assert auto_chunk(v0.shape[0]) == chunk
+    ws = tpack(torch.from_numpy(v0), torch.from_numpy(e1), torch.from_numpy(e2))
+    assert ws.chunk == chunk and ws.n_tris == v0.shape[0]
+    g_tbl, g_eps, g_boxes = _jax_layout(ws)
+    for eps in (1e-5, 1e-6):
+        want = jpack(jnp.asarray(v0), jnp.asarray(e1), jnp.asarray(e2), eps, chunk=chunk)
+        assert ws.n_chunks == want[3]
+        np.testing.assert_array_equal(g_eps[eps], np.asarray(want[1]))
+        np.testing.assert_array_equal(g_boxes, np.asarray(want[2]))
+        w = np.asarray(want[0])
+        rows = [0, 1, 2, 4, 5, 6, 7]
+        np.testing.assert_array_equal(g_tbl[rows], w[rows])
+        atol = 4 * 2.0**-24 * np.abs(w[0:3]).sum(axis=0).max() * np.abs(v0).max()
+        np.testing.assert_allclose(g_tbl[3], w[3], rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("tile", [128, 256])
+def test_tile_chunk_mask_matches_jax(rng, veach_scene, tile):
+    """The per-tile chunk bitmask equals mcpt_tpu's _tile_chunk_mask at the same tile size."""
+    from mcpt_tpu.ops.pallas.woop import _pack_rays, _tile_chunk_mask, pack_woop_table as jpack
+    from mcpt_tpu_torch.ops.woop import pack_rays, tile_chunk_mask
+
+    g = veach_scene.geom
+    tbl, eps, boxes, n_chunks = jpack(g.v0, g.e1, g.e2, 1e-6, chunk=512)
+    o, d, t_max = _veach_rays(veach_scene, rng, R=2000)
+    jr, _, _ = _pack_rays(jnp.asarray(o), jnp.asarray(d), 1e-3, jnp.asarray(t_max), tile)
+    want = np.asarray(_tile_chunk_mask(jr, boxes, n_chunks, tile))
+    port_boxes = torch.from_numpy(np.array(boxes)[0:6, :n_chunks].T.copy())
+    got = tile_chunk_mask(pack_rays(torch.from_numpy(o), torch.from_numpy(d), 1e-3, torch.from_numpy(t_max)),
+                          port_boxes, tile)
+    np.testing.assert_array_equal(to_numpy(got), want)
+    assert (want != 0).any() and (want != (1 << n_chunks) - 1).any()
+
+
+def _woop_inputs(request, rng, which):
+    if which == "random600":
+        jscene, *_ = _random_tri_scene(rng, 600)
+        o, d = _rays(rng, 512)
+        t_max = rng.uniform(0.5, 6.0, 512).astype(np.float32)
+    else:
+        jscene = request.getfixturevalue("veach_scene")
+        o, d, t_max = _veach_rays(jscene, rng)
+    return jscene, torch_scene(jscene), o, d, t_max
+
+
+@pytest.mark.parametrize("which", ["random600", "veach"])
+def test_plain_closest_matches_jax_fused_kernel(request, rng, which):
+    from mcpt_tpu.ops.pallas.woop import closest_hit_woop_fused
+    from mcpt_tpu_torch.ops import woop
+    from mcpt_tpu_torch.ops.woop import closest_hit_woop
+
+    jscene, tscene, o, d, _ = _woop_inputs(request, rng, which)
+    t_min = 1e-4 * jscene.scale
+    ref = closest_hit_woop_fused(jscene, jnp.asarray(o), jnp.asarray(d), t_min=t_min, interpret=True)
+    calls = dict(woop.PLAIN_CALLS)
+    t, tri, u, v = closest_hit_woop(tscene.woop, torch.from_numpy(o), torch.from_numpy(d), t_min, F32_MAX)
+    assert woop.PLAIN_CALLS["closest"] == calls["closest"] + 1  # CPU tensors take the plain version
+    rtri, rt = np.array(ref.tri), np.asarray(ref.t)
+    rtri[[5, 700] if which == "veach" else []] = -1  # parked lanes: the port tests nothing
+    same = to_numpy(tri) == rtri
+    assert same.mean() > 0.99, (~same).sum()
+    sel = same & (rtri >= 0)
+    assert sel.sum() > 50
+    np.testing.assert_allclose(to_numpy(t)[sel], rt[sel], rtol=1e-6, atol=1e-6 * jscene.scale)
+    np.testing.assert_allclose(to_numpy(u)[sel], np.asarray(ref.u)[sel], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(to_numpy(v)[sel], np.asarray(ref.v)[sel], rtol=0, atol=1e-4)
+    assert (to_numpy(u)[sel] >= -1e-6).all() and (to_numpy(v)[sel] >= -1e-6).all()
+    miss = to_numpy(tri) < 0
+    assert (to_numpy(t)[miss] == F32_MAX).all() and (to_numpy(u)[miss] == 0).all()
+
+
+@pytest.mark.parametrize("which", ["random600", "veach"])
+def test_plain_any_matches_jax_fused_kernel(request, rng, which):
+    from mcpt_tpu.ops.pallas.woop import any_hit_woop_fused
+    from mcpt_tpu_torch.ops.woop import any_hit_woop
+
+    jscene, tscene, o, d, t_max = _woop_inputs(request, rng, which)
+    t_min = 1e-4 * jscene.scale
+    ref = np.array(any_hit_woop_fused(jscene, jnp.asarray(o), jnp.asarray(d), t_min=t_min,
+                                        t_max=jnp.asarray(t_max), interpret=True))
+    if which == "veach":
+        ref[[5, 700, 9]] = False  # parked lanes and the empty interval test nothing
+    got = to_numpy(any_hit_woop(tscene.woop, torch.from_numpy(o), torch.from_numpy(d), t_min,
+                                torch.from_numpy(t_max)))
+    assert (got == ref).mean() > 0.99
+    assert 0.05 < ref.mean() < 0.95
+
+
+def test_dense_bruteforce_matches_jax(rng, cornell_scene):
+    """Dense Moller-Trumbore: ids agree on > 99.9 % of rays; t at rtol 1e-6
+    plus 1e-6 of the scene diagonal (sums over xyz in another order)."""
+    from mcpt_tpu.ops.intersect import any_hit_bruteforce as jany, closest_hit_bruteforce as jclosest
+    from mcpt_tpu_torch.ops.intersect import any_hit_bruteforce, closest_hit_bruteforce
+
+    jscene, *_ = _random_tri_scene(rng, 300)
+    for js in (jscene, cornell_scene):
+        ts = torch_scene(js)
+        o, d = _rays(rng, 1024, -js.scale / 3, js.scale / 3)
+        ref = jclosest(js, jnp.asarray(o), jnp.asarray(d), chunk=128)
+        hit = closest_hit_bruteforce(ts, torch.from_numpy(o), torch.from_numpy(d), chunk=128)
+        same = to_numpy(hit.tri) == np.asarray(ref.tri)
+        assert same.mean() > 0.999
+        sel = same & (np.asarray(ref.tri) >= 0)
+        np.testing.assert_allclose(to_numpy(hit.t)[sel], np.asarray(ref.t)[sel], rtol=1e-6,
+                                   atol=1e-6 * js.scale)
+        t_max = js.scale * 0.3
+        ra = np.asarray(jany(js, jnp.asarray(o), jnp.asarray(d), t_max=t_max))
+        ga = to_numpy(any_hit_bruteforce(ts, torch.from_numpy(o), torch.from_numpy(d), t_max=t_max))
+        assert (ra == ga).mean() > 0.999
+
+
+def test_interval_and_degenerate_triangle():
+    """Open t_max for closest hit, closed for any hit; a zero-area triangle
+    never accepts (tests/test_woop.py's cases, on the Woop plain versions)."""
+    from mcpt_tpu_torch.ops.woop import any_hit_woop, pack_woop_table, closest_hit_woop
+
+    def ws_of(v0, e1, e2):
+        return pack_woop_table(*(torch.tensor([x], dtype=torch.float32) for x in (v0, e1, e2)))
+
+    ws = ws_of([-1.0, -1.0, 0.0], [2.0, 0.0, 0.0], [0.0, 2.0, 0.0])
+    o, d = torch.tensor([[0.0, 0.0, -1.0]]), torch.tensor([[0.0, 0.0, 1.0]])
+    assert closest_hit_woop(ws, o, d, 1e-4, 2.0)[1][0] == 0
+    assert closest_hit_woop(ws, o, d, 1e-4, 1.0)[1][0] == -1  # open
+    assert bool(any_hit_woop(ws, o, d, 1e-4, 1.0)[0])  # closed
+    assert not bool(any_hit_woop(ws, o, d, 1e-4, 0.5)[0])
+    degen = ws_of([0.0, 0.0, 0.0], [1.0, 0.0, 0.0], [2.0, 0.0, 0.0])
+    assert closest_hit_woop(degen, o, d, 1e-4, F32_MAX)[1][0] == -1
+    assert not bool(any_hit_woop(degen, o, d, 1e-4, F32_MAX)[0])
+
+
+def test_dispatch_by_triangle_count(cornell_scene, veach_scene, rng):
+    from mcpt_tpu_torch.ops import intersect
+    from mcpt_tpu_torch.ops.woop import pack_woop_table
+
+    assert not intersect.uses_woop_kernel(torch_scene(cornell_scene))
+    assert intersect.uses_woop_kernel(torch_scene(veach_scene))
+    big = dataclasses.replace(torch_scene(cornell_scene), geom=dataclasses.replace(
+        torch_scene(cornell_scene).geom, v0=torch.zeros((5000, 3))))
+    with pytest.raises(NotImplementedError, match="queue 2, item 2"):
+        intersect.closest_hit(big, torch.zeros((1, 3)), torch.ones((1, 3)))
+    with pytest.raises(ValueError, match="32-bit chunk mask"):
+        pack_woop_table(*(torch.from_numpy(x.astype(np.float32)) for x in rng.random((3, 33 * 1024, 3))))
+
+
+def test_kernel_wrappers_take_only_cuda_tensors(veach_scene):
+    """The kernel entry points raise on CPU tensors instead of falling back."""
+    from mcpt_tpu_torch.ops import woop
+
+    ws = torch_scene(veach_scene).woop
+    rays = woop.pack_rays(torch.zeros((4, 3)), torch.ones((4, 3)), 1e-3, 1.0)
+    mask = woop.tile_chunk_mask(rays, ws.boxes)
+    launches = dict(woop.LAUNCHES)
+    for fn in (woop.closest_hit_woop_kernel, woop.any_hit_woop_kernel):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(ws, rays, mask)
+    assert woop.LAUNCHES == launches
