@@ -5,11 +5,21 @@
 
 Phases, each printing its wall seconds:
   1. the device, and the card's name and power limit from nvidia-smi;
-  2. one nvcc build of every kernel under mcpt_tpu_torch/csrc;
-  3. each kernel against its plain torch version on the card, on veach-mis
-     rays at the main path's shapes, with times (CUDA events);
-  4. the main path: Renderer on veach-mis at 1024x1024, 24 bounces, two
-     passes of 1 spp, counting kernel launches.
+  2. one nvcc build of every kernel under mcpt_tpu_torch/csrc, and the g++
+     build of the host BVH builder (csrc/host);
+  3. the Woop kernels against their plain torch versions on the card, on
+     veach-mis rays at the main path's shapes, with times (CUDA events);
+  4. the veach main path: Renderer on veach-mis at 1024x1024, 24 bounces,
+     two passes of 1 spp, counting kernel launches;
+  5. a small veach render on the card against the same render on the CPU;
+  6. bathroom-stress (999,698 triangles) generated in memory, as
+     scenes/generate.py's gen_stress writes it, its BVH built and uploaded;
+  7. the BVH traversal kernels against their plain versions on the card,
+     on its 1280x720 camera rays and their shadow rays, with times;
+  8. the bathroom main path: Renderer at 1280x720, 24 bounces, two passes
+     of 1 spp, counting kernel launches;
+  9. a small render of a 5,986-triangle stress scene on the card against
+     the same render on the CPU.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure raises and exits
 nonzero; without a CUDA card the script exits 1 before printing a result.
@@ -17,6 +27,7 @@ nonzero; without a CUDA card the script exits 1 before printing a result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -38,6 +49,19 @@ H100_FP32_OPS = 67e12  # FP32 peak outside the tensor cores, dense (SXM data she
 H100_BYTES = 3.35e12  # HBM3 bytes per second
 CLOSEST_OPS = 41  # f32 operations per (ray, triangle) test, csrc/woop.cu
 ANY_OPS = 40
+# bathroom-stress: the scene, its main path and the traversal kernels' check
+STRESS_TRIS = 1_000_000  # gen_stress's target (999,698 triangles come out)
+SMALL_STRESS_TRIS = 6000  # 5,986 triangles, still above the 4,096 of the Woop pair
+BATH_W, BATH_H = 1280, 720
+BATH_PASSES = 2
+# f32 operations of csrc/traverse.cu: per node visit, the slab test (6 sub,
+# 9 mul, 3 min + 3 max per axis, 2 max + 2 min across axes, max/min with
+# the interval's ends, the compare) plus min(best_t, t_max) for closest hit;
+# per triangle test, Moller-Trumbore (27 mul, 17 add/sub, abs, compare, one
+# division) and the accept predicate (closest: 5 compares, 2 sub and
+# min(best_t, t_max); any: 6 compares and an add).
+TRAV_NODE_OPS = {"closest": 29, "any": 28}
+TRAV_TRI_OPS = {"closest": 55, "any": 54}
 
 
 def phase(name):
@@ -92,6 +116,13 @@ def build_kernels():
     info = _build.last_build
     if info:
         print(f"nvcc: {info['cmd']}\n{info['output'].strip()}")
+    t0 = time.perf_counter()
+    path = _build.build_host()
+    _build.host_library()
+    print(f"built {os.path.relpath(path, ROOT)} in {time.perf_counter() - t0:.2f} s")
+    info = _build.last_host_build
+    if info:
+        print(f"g++: {info['cmd']}\n{info['output'].strip()}")
 
 
 def _pairs(ws, rays, mask, first_hit_ends):
@@ -225,36 +256,64 @@ def check_kernels(scene):
     return out
 
 
-@phase("4 main path")
-def main_path(scene):
-    import numpy as np
-    import torch
+def _reset_counts():
+    from mcpt_tpu_torch.ops import traverse, woop
 
-    from mcpt_tpu_torch.ops import woop
+    for mod in (woop, traverse):
+        for counts in (mod.LAUNCHES, mod.PLAIN_CALLS):
+            for k in counts:
+                counts[k] = 0
+
+
+def _read_counts():
+    """(launches, plain calls) of every kernel, keyed as in the kernels line."""
+    from mcpt_tpu_torch.ops import traverse, woop
+
+    launches, plain = {}, {}
+    for name, mod in (("woop", woop), ("traverse", traverse)):
+        launches.update({f"{name}_{k}": v for k, v in mod.LAUNCHES.items()})
+        plain.update({f"{name}_{k}": v for k, v in mod.PLAIN_CALLS.items()})
+    return launches, plain
+
+
+def drive_main_path(scene, label, width, height, passes, family):
+    """Render `passes` passes of 1 spp at 24 bounces with every count set to
+    0 first; fail unless the kernels of `family` launched, no other kernel
+    did, no plain version ran, no NaN was scrubbed and the film is finite
+    and positive. Returns the launches."""
+    import numpy as np
+
     from mcpt_tpu_torch.render.renderer import RenderConfig, Renderer
 
-    r = Renderer(scene, RenderConfig(max_bounces=MAX_BOUNCES, width=WIDTH, height=HEIGHT,
+    r = Renderer(scene, RenderConfig(max_bounces=MAX_BOUNCES, width=width, height=height,
                                      spp_per_pass=1, seed=0))
-    for counts in (woop.LAUNCHES, woop.PLAIN_CALLS):
-        for k in counts:
-            counts[k] = 0
-    for i in range(PASSES):
+    _reset_counts()
+    for i in range(passes):
         r.step()
         print(f"pass {i}: {r.pass_times[-1]:.3f} s")
-    launches, plain = dict(woop.LAUNCHES), dict(woop.PLAIN_CALLS)
+    launches, plain = _read_counts()
     st = r.stats
     img = r.film.accum / r.film.spp
     mean = [float(x) for x in img.mean(dim=(0, 1))]
-    print(f"launches {launches}, plain calls {plain}, traced rays {st['traced_rays']:.0f}, "
-          f"{st['mrays_per_s']:.2f} Mrays/s, nan_scrubbed {st['nan_scrubbed']}, mean RGB {mean}")
-    if min(launches.values()) == 0 or max(plain.values()) != 0:
-        raise AssertionError(f"main path did not run through the kernels: {launches}, plain {plain}")
+    print(f"{label} {width}x{height}: launches {launches}, plain calls {plain}, traced rays "
+          f"{st['traced_rays']:.0f}, {st['mrays_per_s']:.2f} Mrays/s, nan_scrubbed {st['nan_scrubbed']}, "
+          f"mean RGB {mean}")
+    mine = {k: v for k, v in launches.items() if k.startswith(family + "_")}
+    others = {k: v for k, v in launches.items() if not k.startswith(family + "_")}
+    if min(mine.values()) == 0 or max(others.values()) != 0 or max(plain.values()) != 0:
+        raise AssertionError(f"{label} main path did not run through the {family} kernels alone: "
+                             f"{launches}, plain {plain}")
     if st["nan_scrubbed"] != 0 or not all(np.isfinite(mean)) or min(mean) <= 0:
         raise AssertionError(f"bad film: nan_scrubbed {st['nan_scrubbed']}, mean {mean}")
     with tempfile.TemporaryDirectory() as tmp:
-        path = r.save(os.path.join(tmp, "veach.png"))
+        path = r.save(os.path.join(tmp, f"{label}.png"))
         print(f"saved a {os.path.getsize(path)}-byte PNG")
     return launches
+
+
+@phase("4 veach main path")
+def main_path(scene):
+    return drive_main_path(scene, "veach", WIDTH, HEIGHT, PASSES, "woop")
 
 
 @phase("5 small render, card vs CPU")
@@ -262,8 +321,6 @@ def small_reference(scene_cuda):
     """The same small render through the kernels and through the plain
     versions on the CPU: means within rtol 2e-3, >= 99 % of components
     within 1e-3 (tests/test_woop.py's render contract)."""
-    import numpy as np
-
     from mcpt_tpu_torch.io.obj import load_scene
     from mcpt_tpu_torch.render.renderer import RenderConfig, Renderer
 
@@ -272,12 +329,303 @@ def small_reference(scene_cuda):
         r = Renderer(scene, RenderConfig(max_bounces=8, width=64, height=48, spp_per_pass=2, seed=1))
         r.step()
         imgs.append((r.film.accum / r.film.spp).cpu().numpy())
-    a, b = imgs
+    _render_contract("veach 64x48x2spp", *imgs)
+
+
+# ---------------------------------------------------------------------------
+# bathroom-stress in memory
+# ---------------------------------------------------------------------------
+
+def _round6(x):
+    """x as the OBJ writer's %.6f and the loader's float() leave it: the
+    nearest multiple of 1e-6, ties to even on the exact binary value."""
+    import numpy as np
+
+    x = np.asarray(x, np.float64)
+    y = x * 1e6
+    k = np.rint(y)
+    near = np.abs(np.abs(y - np.trunc(y)) - 0.5) < 1e-6  # x*1e6 may have rounded across .5
+    if near.any():
+        k[near] = [int(("%.6f" % v).replace(".", "")) for v in x[near]]
+    return k / 1e6
+
+
+def _unit_icosphere(subdiv=2):
+    """Vertices and faces of scenes/generate.py's icosphere, in its order."""
+    import numpy as np
+
+    t = (1.0 + math.sqrt(5.0)) / 2.0
+    base = [(-1, t, 0), (1, t, 0), (-1, -t, 0), (1, -t, 0), (0, -1, t), (0, 1, t),
+            (0, -1, -t), (0, 1, -t), (t, 0, -1), (t, 0, 1), (-t, 0, -1), (-t, 0, 1)]
+    verts = [np.array(v) / np.linalg.norm(v) for v in base]
+    faces = [(0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11), (1, 5, 9), (5, 11, 4),
+             (11, 10, 2), (10, 7, 6), (7, 1, 8), (3, 9, 4), (3, 4, 2), (3, 2, 6), (3, 6, 8),
+             (3, 8, 9), (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1)]
+    for _ in range(subdiv):
+        cache, new = {}, []
+
+        def mid(i, j):
+            key = (min(i, j), max(i, j))
+            if key not in cache:
+                m = verts[i] + verts[j]
+                verts.append(m / np.linalg.norm(m))
+                cache[key] = len(verts) - 1
+            return cache[key]
+
+        for a, b, c in faces:
+            ab, bc, ca = mid(a, b), mid(b, c), mid(c, a)
+            new += [(a, ab, ca), (b, bc, ab), (c, ca, bc), (ab, bc, ca)]
+        faces = new
+    return np.stack(verts), np.asarray(faces)
+
+
+def stress_scene_arrays(target_tris=STRESS_TRIS, seed=0):
+    """bathroom-stress without files: the arguments of the port's
+    build_scene_host for what scenes/generate.py's gen_stress(target_tris,
+    seed) writes and mcpt_tpu_torch.io.obj.load_scene reads back. Same
+    triangles in the same order (room, tiled panel, mirror, height field,
+    icospheres, ceiling light), positions, normals and uvs rounded as %.6f
+    rounds them, the 256x256 checker texture, the camera and light of
+    scenes/bathroom-stress.xml. Returns (vertices, normals, uvs, faces,
+    mats, atlas, camera)."""
+    import numpy as np
+
+    pos, nrm, uvs, mat = [], [], [], []
+    one_uv = np.array([[0.0, 0.0], [1.0, 0.0], [1.0, 1.0]])
+
+    def quad(p, n, m, uv=((0, 0), (1, 0), (1, 1), (0, 1))):
+        p, uv = np.asarray(p, np.float64), np.asarray(uv, np.float64)
+        pos.append(p[[[0, 1, 2], [0, 2, 3]]])
+        nrm.append(np.broadcast_to(np.asarray(n, np.float64), (2, 3, 3)))
+        uvs.append(uv[[[0, 1, 2], [0, 2, 3]]])
+        mat.append(np.full(2, m))
+
+    walls = [((10, 0, 0), (0, 0, 0), (0, 0, 10), (10, 0, 10), (0, 1, 0)),
+             ((10, 6, 0), (10, 6, 10), (0, 6, 10), (0, 6, 0), (0, -1, 0)),
+             ((10, 0, 10), (0, 0, 10), (0, 6, 10), (10, 6, 10), (0, 0, -1)),
+             ((0, 0, 10), (0, 0, 0), (0, 6, 0), (0, 6, 10), (1, 0, 0)),
+             ((10, 0, 0), (10, 0, 10), (10, 6, 10), (10, 6, 0), (-1, 0, 0))]
+    for *p, n in walls:
+        quad(p, n, 0)
+    quad([(9.5, 0.01, 0.5), (0.5, 0.01, 0.5), (0.5, 0.01, 9.5), (9.5, 0.01, 9.5)], (0, 1, 0), 1,
+         uv=[(0, 0), (8, 0), (8, 8), (0, 8)])
+    quad([(8, 1, 9.99), (2, 1, 9.99), (2, 5, 9.99), (8, 5, 9.99)], (0, 0, -1), 2)
+
+    # height field: cells (i, j), i outer, two triangles a cell
+    n = max(8, int(math.sqrt(int(target_tris * 0.7) / 2)))
+    xs = np.linspace(1.0, 9.0, n + 1)
+    zs = np.linspace(1.0, 9.0, n + 1)
+    X, Z = np.meshgrid(xs, zs, indexing="ij")
+    Y = 0.4 + 0.25 * np.sin(X * 3.1) * np.cos(Z * 2.7) + 0.1 * np.sin(X * 11 + Z * 7)
+    dYdx = np.gradient(Y, xs, axis=0)
+    dYdz = np.gradient(Y, zs, axis=1)
+    N = np.stack([-dYdx, np.ones_like(dYdx), -dYdz], axis=-1)
+    N = N / np.sqrt((N * N).sum(axis=-1, keepdims=True))
+    P = np.stack([X, Y, Z], axis=-1)
+    UV = np.stack(np.meshgrid(xs / 10.0, zs / 10.0, indexing="ij"), axis=-1)
+    i, j = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    i, j = i.reshape(-1), j.reshape(-1)
+    # triangle A: (i,j) (i+1,j) (i+1,j+1); triangle B: (i,j) (i+1,j+1) (i,j+1)
+    ci = np.stack([np.stack([i, i + 1, i + 1], 1), np.stack([i, i + 1, i], 1)], 1).reshape(-1, 3)
+    cj = np.stack([np.stack([j, j, j + 1], 1), np.stack([j, j + 1, j + 1], 1)], 1).reshape(-1, 3)
+    pos.append(P[ci, cj])
+    nrm.append(N[ci, cj])
+    uvs.append(UV[ci, cj])
+    mat.append(np.full(ci.shape[0], 3))
+
+    # icospheres
+    rng = np.random.default_rng(seed)
+    n_spheres = max(1, (target_tris - 2 * n * n - 16) // 320)
+    u = rng.random((n_spheres, 4))  # per sphere: center (3 draws), then radius
+    lo, hi = np.array([1.5, 1.2, 1.5]), np.array([8.5, 4.5, 8.5])
+    cen = lo + (hi - lo) * u[:, :3]
+    rad = 0.05 + (0.25 - 0.05) * u[:, 3]
+    V, F = _unit_icosphere(2)
+    pos.append((cen[:, None, None, :] + rad[:, None, None, None] * V[F][None]).reshape(-1, 3, 3))
+    nrm.append(np.broadcast_to(V[F][None], (n_spheres,) + V[F].shape).reshape(-1, 3, 3))
+    uvs.append(np.broadcast_to(one_uv, (n_spheres * F.shape[0], 3, 2)))
+    mat.append(np.full(n_spheres * F.shape[0], 4))
+
+    quad([(6.5, 5.98, 3.5), (3.5, 5.98, 3.5), (3.5, 5.98, 6.5), (6.5, 5.98, 6.5)], (0, -1, 0), 5)
+
+    pos, nrm, uvs = (_round6(np.concatenate(x).reshape(-1, x[0].shape[-1])) for x in (pos, nrm, uvs))
+    mat = np.concatenate(mat)
+    T = mat.shape[0]
+    idx = np.arange(3 * T, dtype=np.int32).reshape(T, 3)
+    faces = np.stack([idx, idx, idx, np.broadcast_to(mat[:, None], (T, 3)).astype(np.int32)], axis=-1)
+
+    kd = np.array([[0.7, 0.68, 0.65], [0.8, 0.8, 0.8], [0.0, 0.0, 0.0], [0.55, 0.5, 0.45],
+                   [0.3, 0.45, 0.6], [0.8, 0.8, 0.8]])
+    ks = np.zeros((6, 3))
+    ks[2], ks[3] = (0.92, 0.94, 0.96), (0.2, 0.2, 0.2)
+    ns = np.ones(6)
+    ns[2], ns[3] = 10000.0, 80.0
+    radiance = np.zeros((6, 3))
+    radiance[5] = (22.0, 20.0, 17.0)
+    mats = {"kd": kd, "ks": ks, "ns": ns, "tr": np.zeros((6, 3)), "ni": np.ones(6),
+            "radiance": radiance, "tex_id": np.array([-1, 0, -1, -1, -1, -1], np.int32)}
+    ij = np.arange(256)
+    cx = (ij[:, None] * 8 // 256 + ij[None, :] * 8 // 256) % 2
+    img = np.where(cx[..., None] == 0, np.array([235, 235, 230]), np.array([40, 60, 90])).astype(np.uint8)
+    atlas = ((img.astype(np.float32) / 255.0) ** 2.2)[None], np.array([[256, 256]], np.int32)
+    camera = {"width": 1280, "height": 720, "fovy": 55.0, "eye": np.array([5.0, 3.0, 0.3]),
+              "lookat": np.array([5.0, 2.2, 5.0]), "up": np.array([0.0, 1.0, 0.0])}
+    return pos, nrm, uvs, faces, mats, atlas, camera
+
+
+def stress_scene(target_tris=STRESS_TRIS, seed=0, devices=("cuda",), verbose=False):
+    """The in-memory bathroom-stress scene, BVH built, on each of `devices`."""
+    from mcpt_tpu_torch.ops.bvh import attach_bvh
+    from mcpt_tpu_torch.scene import build_scene_host, finalize_scene, to_device
+
+    t0 = time.perf_counter()
+    host = build_scene_host(*stress_scene_arrays(target_tris, seed))
+    t1 = time.perf_counter()
+    host = attach_bvh(host)
+    t2 = time.perf_counter()
+    scenes = [finalize_scene(to_device(host, dev)) for dev in devices]
+    if scenes[0].device.type == "cuda":
+        import torch
+
+        torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    if verbose:
+        print(f"bathroom-stress: {host.num_tris} triangles, {host.bvh.lo.shape[0]} BVH nodes; "
+              f"generate {t1 - t0:.2f} s, BVH build {t2 - t1:.2f} s, upload {t3 - t2:.2f} s")
+    return scenes
+
+
+@phase("6 bathroom-stress in memory")
+def bathroom_scene():
+    (scene,) = stress_scene(STRESS_TRIS, 0, ("cuda",), verbose=True)
+    if scene.num_tris != 999_698:
+        raise AssertionError(f"bathroom-stress has {scene.num_tris} triangles, not 999,698")
+    return scene
+
+
+def _traversal_bound(kind, counts, rays, ts):
+    """Least time (ms) for this batch and what sets it: this run's node visits
+    and triangle tests times their f32 operations over the FP32 rate, or the
+    bytes of each input read once (rays, node and triangle tables) and each
+    output written once over the memory rate."""
+    R = rays.shape[0]
+    ops = counts["node_visits"] * TRAV_NODE_OPS[kind] + counts["tri_tests"] * TRAV_TRI_OPS[kind]
+    nbytes = R * (32 + (16 if kind == "closest" else 1)) + 4 * (ts.nodes.numel() + ts.tris.numel())
+    ops_s, bytes_s = ops / H100_FP32_OPS, nbytes / H100_BYTES
+    return 1e3 * max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes"
+
+
+@phase("7 traversal kernels vs plain")
+def check_traversal(scene):
+    """Each traversal kernel against its plain version on the same sorted
+    batch (the main path's order): 0 rays may differ, t/u/v bitwise. Closest
+    hit on the scene camera's rays, any hit on shadow rays from their hits to
+    points on the light."""
+    import torch
+
+    from mcpt_tpu_torch.ops import traverse as tv
+    from mcpt_tpu_torch.ops.woop import F32_MAX, pack_rays
+    from mcpt_tpu_torch.render.camera import generate_rays
+    from mcpt_tpu_torch.render.integrator import RAY_EPS_REL, pack_light_table, sample_light_point
+
+    dev = scene.device
+    ts = scene.trav
+    g = torch.Generator(device=dev).manual_seed(0)
+    cam = scene.camera
+    R = cam.width * cam.height
+    o, d = generate_rays(cam, torch.rand((R, 2), generator=g, device=dev), torch.arange(R, device=dev))
+    t_min = RAY_EPS_REL * scene.scale
+    batches = {"closest": pack_rays(o, d, t_min, F32_MAX)}
+
+    def sort(rays):
+        order = tv.ray_sort_order(ts, rays[:, 0:3], rays[:, 4:7])
+        return rays[order].contiguous(), order
+
+    out, results = [], {}
+    for kind in ("closest", "any"):
+        if kind == "any":  # shadow rays from the closest hits (pixel order) to the light
+            t, tri = results["closest"]
+            hit = tri >= 0
+            pts = (o + d * t[:, None])[hit]
+            u = torch.rand((pts.shape[0], 3), generator=g, device=dev)
+            lp = sample_light_point(pack_light_table(scene), scene.num_lights, u[:, 0], u[:, 1], u[:, 2])[0]
+            sv = lp - pts
+            dist = sv.norm(dim=1)
+            batches["any"] = pack_rays(pts, sv / dist[:, None], t_min, dist * (1 - 1e-3))
+        rays = batches[kind]
+        srt, order = sort(rays)
+        kern = getattr(tv, f"{kind}_hit_traverse_kernel")
+        plain = getattr(tv, f"{kind}_hit_traverse_plain")
+        counts = {}
+        t0 = time.perf_counter()
+        p = plain(ts, srt, counts)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        k = kern(ts, srt)
+        torch.cuda.synchronize()
+        if kind == "closest":
+            n_diff = int((k[1] != p[1]).sum())
+            bitwise = all(torch.equal(a, b) for a, b in zip(k, p))
+            both = (k[1] == p[1]) & (p[1] >= 0)
+            err = max(float((a[both] - b[both]).abs().max()) if both.any() else 0.0
+                      for a, b in ((k[0], p[0]), (k[2], p[2]), (k[3], p[3])))
+            back_t, back_tri = torch.empty_like(p[0]), torch.empty_like(p[1])
+            back_t[order], back_tri[order] = p[0], p[1]
+            results["closest"] = (back_t, back_tri)
+            share = float((p[1] >= 0).float().mean())
+        else:
+            n_diff = int((k != p).sum())
+            bitwise = n_diff == 0
+            err = float((k.int() - p.int()).abs().max())
+            share = float(p.float().mean())
+        print(f"traverse_{kind}: {rays.shape[0]} rays, {'hits' if kind == 'closest' else 'occluded'} "
+              f"{share:.4f}, {n_diff} rays differ, bitwise {bitwise}, max abs err {err:.3g}; plain walk "
+              f"{plain_s:.2f} s, {counts['node_visits']} node visits, {counts['tri_tests']} triangle tests")
+        if n_diff or not bitwise:
+            raise AssertionError(f"traverse_{kind} kernel differs from its plain version on {n_diff} rays "
+                                 f"(bitwise {bitwise})")
+        ms = cuda_time_ms(lambda: kern(ts, srt))
+        ms_unsorted = cuda_time_ms(lambda: kern(ts, rays))
+        plain_ms = cuda_time_ms(lambda: plain(ts, srt))
+        bound_ms, by = _traversal_bound(kind, counts, srt, ts)
+        print(f"traverse_{kind}: kernel {ms:.4f} ms sorted, {ms_unsorted:.4f} ms unsorted "
+              f"({ms_unsorted / ms:.2f}x), plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({by})")
+        out.append({"name": f"traverse_{kind}", "route": "cuda", "source": "mcpt_tpu_torch/csrc/traverse.cu",
+                    "replaces": "mcpt_tpu/ops/pallas/traverse.py:" + ("128" if kind == "closest" else "347"),
+                    "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": by, "library_ms": None})
+    return out
+
+
+@phase("8 bathroom main path")
+def bathroom_main_path(scene):
+    return drive_main_path(scene, "bathroom", BATH_W, BATH_H, BATH_PASSES, "traverse")
+
+
+def _render_contract(label, a, b):
+    """>= 99 % of components within 1e-3 and channel means within rtol 2e-3
+    (tests/test_woop.py's render contract)."""
+    import numpy as np
+
     close = float(np.isclose(a, b, rtol=1e-3, atol=1e-3).mean())
     ma, mb = a.mean(axis=(0, 1)), b.mean(axis=(0, 1))
-    print(f"64x48x2spp: components close {close:.5f}, mean card {ma}, mean cpu {mb}")
+    print(f"{label}: components close {close:.5f}, mean card {ma}, mean cpu {mb}")
     if close < 0.99 or not np.allclose(ma, mb, rtol=2e-3, atol=0.0):
-        raise AssertionError("card render disagrees with the CPU render")
+        raise AssertionError(f"{label}: card render disagrees with the CPU render")
+
+
+@phase("9 small stress render, card vs CPU")
+def small_stress_reference():
+    """A 5,986-triangle stress scene, 64x48 at 2 spp and 8 bounces, through
+    the traversal kernels and through their plain versions on the CPU."""
+    from mcpt_tpu_torch.render.renderer import RenderConfig, Renderer
+
+    imgs = []
+    for scene in stress_scene(SMALL_STRESS_TRIS, 0, ("cuda", "cpu")):
+        r = Renderer(scene, RenderConfig(max_bounces=8, width=64, height=48, spp_per_pass=2, seed=1))
+        r.step()
+        imgs.append((r.film.accum / r.film.spp).cpu().numpy())
+    _render_contract(f"stress-{SMALL_STRESS_TRIS} 64x48x2spp", *imgs)
 
 
 def main() -> int:
@@ -299,9 +647,15 @@ def main() -> int:
           f"of {scene.woop.chunk}): {time.perf_counter() - t0:.2f} s")
     kernels = check_kernels(scene)
     launches = main_path(scene)
-    for k in kernels:
-        k["launches"] = launches[k["name"].split("_")[1]]
     small_reference(scene)
+    del scene
+    bath = bathroom_scene()
+    kernels += check_traversal(bath)
+    launches.update({k: v for k, v in bathroom_main_path(bath).items() if k.startswith("traverse_")})
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    del bath
+    small_stress_reference()
     print(f"total {time.perf_counter() - t_start:.2f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -1,10 +1,15 @@
-"""Build csrc/*.cu with one nvcc call into a shared library, load it with ctypes.
+"""Build the port's native code into shared libraries and load them with ctypes.
 
-The library has a plain C interface (no PyTorch headers), so the build
-takes seconds. It goes to mcpt_tpu_torch/_build/, named by a hash of the
-sources and the command line, and is reused while neither changes. Nothing
-is built when the package is imported: the first kernel launch on a CUDA
-tensor builds, and `build()` can be called ahead of time.
+Two libraries, each with a plain C interface (no PyTorch headers), so each
+builds in seconds:
+  * the CUDA kernels: every csrc/*.cu in one nvcc call (`build`, `library`);
+  * the host BVH builder: csrc/host/bvh_sah.cpp with g++ (`build_host`,
+    `host_library`).
+Each goes to mcpt_tpu_torch/_build/, named by a hash of its sources and
+command line, is published with an atomic rename (several test workers may
+build at once), and is reused while neither changes. Nothing is built when
+the package is imported: the first kernel launch on a CUDA tensor, or the
+first BVH build, builds, and both can be called ahead of time.
 """
 from __future__ import annotations
 
@@ -21,6 +26,10 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+HOST_SRC = os.path.join(CSRC_DIR, "host", "bvh_sah.cpp")
+# No -march=native and no contraction: the builder's output must not depend
+# on the host CPU (the source writes its two fused multiply-adds as std::fma).
+GXX_FLAGS = ["-O3", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points and their argument types; every pointer and the stream are
@@ -28,10 +37,14 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "woop_closest": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "woop_any": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "traverse_closest": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
+    "traverse_any": [_P, _P, _P, _I, _I, _P, _P],
 }
 
 _lib = None
-last_build: dict = {}  # seconds, command and compiler output of this process's build
+_host_lib = None
+last_build: dict = {}  # seconds, command and compiler output of this process's nvcc build
+last_host_build: dict = {}  # the same for the g++ build
 
 
 def sources() -> list[str]:
@@ -47,28 +60,44 @@ def _nvcc() -> str:
     return found
 
 
-def build() -> str:
-    """Compile every csrc/*.cu into one .so (if not built yet); return its path."""
-    srcs = sources()
-    cu = [s for s in srcs if s.endswith(".cu")]
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _compile(compiler: str, flags: list[str], srcs: list[str], inputs: list[str], name: str,
+             info: dict) -> str:
+    """Compile `inputs` into _build/<name>_<hash>.so unless built already; the
+    hash covers `srcs` and the flags. Returns the library's path."""
+    h = hashlib.sha256(" ".join(flags).encode())
     for s in srcs:
         with open(s, "rb") as f:
             h.update(os.path.basename(s).encode() + f.read())
-    out = os.path.join(BUILD_DIR, f"libmcpt_kernels_{h.hexdigest()[:16]}.so")
+    out = os.path.join(BUILD_DIR, f"{name}_{h.hexdigest()[:16]}.so")
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.tmp{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+    cmd = [compiler, *flags, "-o", tmp, *inputs]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    last_build.update(seconds=time.perf_counter() - t0, cmd=" ".join(cmd),
-                      output=proc.stdout + proc.stderr)
+    info.update(seconds=time.perf_counter() - t0, cmd=" ".join(cmd),
+                output=proc.stdout + proc.stderr)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
+        raise RuntimeError(f"{os.path.basename(compiler)} failed ({proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)  # atomic: a concurrent builder sees the old name or the whole file
     return out
+
+
+def build() -> str:
+    """Compile every csrc/*.cu into one .so (if not built yet); return its path."""
+    srcs = sources()
+    return _compile(_nvcc(), NVCC_FLAGS, srcs, [s for s in srcs if s.endswith(".cu")],
+                    "libmcpt_kernels", last_build)
+
+
+def build_host() -> str:
+    """Compile the host BVH builder with g++ (if not built yet); return its path."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found on PATH (needed for the host BVH builder)")
+    return _compile(gxx, GXX_FLAGS, [HOST_SRC], [HOST_SRC], "libmcpt_host", last_host_build)
 
 
 def library() -> ctypes.CDLL:
@@ -82,6 +111,18 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def host_library() -> ctypes.CDLL:
+    """The loaded host library, built on first use."""
+    global _host_lib
+    if _host_lib is None:
+        lib = ctypes.CDLL(build_host())
+        fn = lib.mcpt_torch_build_bvh
+        fn.argtypes = [_P, _P, _P, ctypes.c_int64, ctypes.c_int32, _P, _P, _P, _P, _P, _P]
+        fn.restype = ctypes.c_int64
+        _host_lib = lib
+    return _host_lib
 
 
 def check(err: int, name: str) -> None:

@@ -12,7 +12,9 @@ Dispatch by triangle count:
     wave below, which is also the oracle for the kernels;
   * DENSE_KERNEL_MIN_TRIS < T <= BRUTE_FORCE_MAX_TRIS (veach): the
     hand-written Woop kernel pair (ops/woop.py, csrc/woop.cu);
-  * larger scenes need the treelet traversal kernel, not ported yet.
+  * T > BRUTE_FORCE_MAX_TRIS (bathroom): the hand-written BVH traversal
+    kernel pair (ops/traverse.py, csrc/traverse.cu), which needs the
+    scene's BVH.
 """
 from __future__ import annotations
 
@@ -165,23 +167,30 @@ def uses_woop_kernel(scene) -> bool:
     return DENSE_KERNEL_MIN_TRIS < scene.num_tris <= BRUTE_FORCE_MAX_TRIS
 
 
+def uses_traversal_kernel(scene) -> bool:
+    """Does dispatch run the BVH traversal kernel pair for this scene?"""
+    return scene.num_tris > BRUTE_FORCE_MAX_TRIS
+
+
 def dispatch_returns_uv(scene) -> bool:
     """Does closest_hit return kernel-computed (u, v)? Then the integrator
     uses the slim shading expansion."""
-    return uses_woop_kernel(scene)
+    return uses_woop_kernel(scene) or uses_traversal_kernel(scene)
 
 
-def check_supported(scene) -> None:
-    if scene.num_tris > BRUTE_FORCE_MAX_TRIS:
-        raise NotImplementedError(
-            f"{scene.num_tris} triangles: scenes above {BRUTE_FORCE_MAX_TRIS} "
-            "need the treelet traversal kernel (ROADMAP queue 2, item 2), "
-            "which is not ported yet"
-        )
+def _traversal_set(scene):
+    if scene.trav is None:
+        raise ValueError(f"{scene.num_tris} triangles: scenes above {BRUTE_FORCE_MAX_TRIS} are "
+                         "traversed through their BVH; load them with with_bvh=True")
+    return scene.trav
 
 
 def closest_hit(scene: Scene, org, dirn, t_min=T_MIN, t_max=F32_MAX) -> Hit:
-    check_supported(scene)
+    if uses_traversal_kernel(scene):
+        from mcpt_tpu_torch.ops.traverse import closest_hit_traverse
+
+        t, tri, u, v = closest_hit_traverse(_traversal_set(scene), org, dirn, t_min, t_max)
+        return Hit(t=t, tri=tri, u=u, v=v)
     if uses_woop_kernel(scene):
         from mcpt_tpu_torch.ops.woop import closest_hit_woop
 
@@ -191,7 +200,10 @@ def closest_hit(scene: Scene, org, dirn, t_min=T_MIN, t_max=F32_MAX) -> Hit:
 
 
 def any_hit(scene: Scene, org, dirn, t_min=T_MIN, t_max=F32_MAX) -> torch.Tensor:
-    check_supported(scene)
+    if uses_traversal_kernel(scene):
+        from mcpt_tpu_torch.ops.traverse import any_hit_traverse
+
+        return any_hit_traverse(_traversal_set(scene), org, dirn, t_min, t_max)
     if uses_woop_kernel(scene):
         from mcpt_tpu_torch.ops.woop import any_hit_woop
 

@@ -14,7 +14,7 @@ from typing import Callable, Optional
 
 import torch
 
-from mcpt_tpu_torch.ops.intersect import F32_MAX, check_supported
+from mcpt_tpu_torch.ops.intersect import F32_MAX
 from mcpt_tpu_torch.render.film import Film, make_film
 from mcpt_tpu_torch.render.integrator import (
     chunk_rays_for, split_shade, split_state0, split_trace,
@@ -131,7 +131,6 @@ class Renderer:
 
     def __init__(self, scene: Scene, config: RenderConfig = None):
         self.config = config or RenderConfig()
-        check_supported(scene)
         if self.config.width or self.config.height:
             cam = dataclasses.replace(scene.camera,
                                       width=self.config.width or scene.camera.width,

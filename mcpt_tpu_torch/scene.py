@@ -98,6 +98,8 @@ class Scene:
     bvh: Optional[FlatBVH] = None
     # Woop kernel tables (ops/woop.WoopSet), built once per scene.
     woop: Optional[object] = None
+    # BVH traversal kernel tables (ops/traverse.TraversalSet), built once per scene.
+    trav: Optional[object] = None
     # Scene bbox diagonal; secondary-ray t_min is RAY_EPS_REL * scale.
     scale: float = 1.0
     num_verts: int = 0
@@ -259,10 +261,15 @@ def scene_from_arrays(d: dict, device=None) -> Scene:
 
 def finalize_scene(scene: Scene) -> Scene:
     """Attach the per-scene intersection tables that dispatch needs."""
-    from mcpt_tpu_torch.ops.intersect import uses_woop_kernel
-    from mcpt_tpu_torch.ops.woop import pack_woop_table
+    from mcpt_tpu_torch.ops.intersect import uses_traversal_kernel, uses_woop_kernel
 
+    g = scene.geom
     if uses_woop_kernel(scene):
-        g = scene.geom
+        from mcpt_tpu_torch.ops.woop import pack_woop_table
+
         scene = dataclasses.replace(scene, woop=pack_woop_table(g.v0, g.e1, g.e2))
+    elif uses_traversal_kernel(scene) and scene.bvh is not None:
+        from mcpt_tpu_torch.ops.traverse import pack_traversal
+
+        scene = dataclasses.replace(scene, trav=pack_traversal(scene.bvh, g.v0, g.e1, g.e2))
     return scene

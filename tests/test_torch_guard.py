@@ -60,7 +60,8 @@ def test_renders_with_jax_blocked():
 
 
 def test_import_builds_nothing():
-    """Importing every module of the package runs no compiler and loads no library."""
+    """Importing every module of the package runs no compiler (nvcc or g++)
+    and loads no library."""
     out = _run(
         "import importlib, pkgutil, subprocess\n"
         "def refuse(*a, **k): raise AssertionError('subprocess started at import')\n"
@@ -69,6 +70,7 @@ def test_import_builds_nothing():
         "for m in pkgutil.walk_packages(mcpt_tpu_torch.__path__, 'mcpt_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "from mcpt_tpu_torch.ops import _build\n"
-        "print('OK', _build._lib is None, _build.last_build == {})\n"
+        "print('OK', _build._lib is None, _build.last_build == {}, _build._host_lib is None,\n"
+        "      _build.last_host_build == {})\n"
     )
-    assert out.strip() == "OK True True"
+    assert out.strip() == "OK True True True True"

@@ -34,22 +34,38 @@ def test_load_scene_matches_jax(name):
                                       v, err_msg=k)
 
 
-@pytest.mark.parametrize("T, flat_axis", [(1, None), (16, None), (700, None), (400, 0), (400, 2)],
-                         ids=["1", "16", "700", "flat0", "flat2"])
+@pytest.mark.parametrize("T, flat_axis", [(1, None), (16, None), (700, None), (400, 0), (400, 2),
+                                          ("stress6k", None)],
+                         ids=["1", "16", "700", "flat0", "flat2", "stress6k"])
 def test_sah_bvh_matches_native_builder(rng, T, flat_axis):
-    """The numpy port of the binned-SAH builder equals mcpt_tpu's native one,
-    also for triangles in one plane (a wall of quads), whose centroid box
-    has no extent on `flat_axis`."""
+    """The port's C++ copy of the binned-SAH builder equals mcpt_tpu's native
+    one, also for triangles in one plane (a wall of quads), whose centroid
+    box has no extent on `flat_axis`, and on bathroom-stress at 5,986
+    triangles (chip_smoke.py's in-memory generator: walls, a height field
+    and icospheres, geometry in f32 as attach_bvh passes it)."""
     from mcpt_tpu.native.bvh_native import build_bvh_native
     from mcpt_tpu.ops.bvh import validate_bvh
     from mcpt_tpu_torch.ops.bvh import _build_bvh_sah
 
-    v = rng.uniform(-5, 5, (T, 3, 3))
-    if T == 16:
-        v[:] = v[0]  # coincident centroids: the median fallback
-    if flat_axis is not None:
-        v[:, :, flat_axis] = 1.5
-    v0, e1, e2 = v[:, 0], v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]
+    if T == "stress6k":
+        import sys
+
+        sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+        try:
+            import chip_smoke
+        finally:
+            sys.path.pop(0)
+        from mcpt_tpu_torch.scene import build_scene_host
+
+        g = build_scene_host(*chip_smoke.stress_scene_arrays(6000, 0)).geom
+        v0, e1, e2 = (np.asarray(x, np.float64) for x in (g.v0, g.e1, g.e2))
+    else:
+        v = rng.uniform(-5, 5, (T, 3, 3))
+        if T == 16:
+            v[:] = v[0]  # coincident centroids: the median fallback
+        if flat_axis is not None:
+            v[:, :, flat_axis] = 1.5
+        v0, e1, e2 = v[:, 0], v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]
     (jn, jp), (tn, tp) = build_bvh_native(v0, e1, e2, 4), _build_bvh_sah(v0, e1, e2, 4)
     np.testing.assert_array_equal(tp, jp)
     for k in jn:

@@ -212,15 +212,30 @@ def test_interval_and_degenerate_triangle():
 
 
 def test_dispatch_by_triangle_count(cornell_scene, veach_scene, rng):
-    from mcpt_tpu_torch.ops import intersect
+    """Dense wave up to 256 triangles, the Woop pair up to 4,096, the BVH
+    traversal pair above (with kernel u/v, so the slim expander)."""
+    from mcpt_tpu_torch.ops import intersect, traverse, woop
     from mcpt_tpu_torch.ops.woop import pack_woop_table
 
     assert not intersect.uses_woop_kernel(torch_scene(cornell_scene))
     assert intersect.uses_woop_kernel(torch_scene(veach_scene))
-    big = dataclasses.replace(torch_scene(cornell_scene), geom=dataclasses.replace(
-        torch_scene(cornell_scene).geom, v0=torch.zeros((5000, 3))))
-    with pytest.raises(NotImplementedError, match="queue 2, item 2"):
-        intersect.closest_hit(big, torch.zeros((1, 3)), torch.ones((1, 3)))
+    jbig, *_ = _random_tri_scene(np.random.default_rng(5), 5000)
+    big = torch_scene(dataclasses.replace(jbig, bvh=None))
+    assert big.trav is None and not intersect.uses_woop_kernel(big)
+    from mcpt_tpu_torch.ops.bvh import attach_bvh
+    from mcpt_tpu_torch.scene import finalize_scene, to_device
+
+    host = dataclasses.replace(big, geom=dataclasses.replace(
+        big.geom, **{k: to_numpy(getattr(big.geom, k)) for k in ("v0", "e1", "e2", "vn", "uv", "mat_id", "area")}),
+        light_tris=np.zeros(0, np.int32))
+    big = finalize_scene(to_device(attach_bvh(host), "cpu"))
+    assert intersect.uses_traversal_kernel(big) and intersect.dispatch_returns_uv(big)
+    calls = (dict(traverse.PLAIN_CALLS), dict(woop.PLAIN_CALLS))
+    hit = intersect.closest_hit(big, torch.zeros((1, 3)), torch.ones((1, 3)) / 3 ** 0.5)
+    assert hit.u is not None and hit.v is not None
+    intersect.any_hit(big, torch.zeros((1, 3)), torch.ones((1, 3)) / 3 ** 0.5, t_max=1.0)
+    assert traverse.PLAIN_CALLS == {k: calls[0][k] + 1 for k in calls[0]}
+    assert woop.PLAIN_CALLS == calls[1]
     with pytest.raises(ValueError, match="32-bit chunk mask"):
         pack_woop_table(*(torch.from_numpy(x.astype(np.float32)) for x in rng.random((3, 33 * 1024, 3))))
 
