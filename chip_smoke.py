@@ -19,13 +19,23 @@ Phases, each printing its wall seconds:
   8. the bathroom main path: Renderer at 1280x720, 24 bounces, two passes
      of 1 spp, counting kernel launches;
   9. a small render of a 5,986-triangle stress scene on the card against
-     the same render on the CPU.
+     the same render on the CPU;
+ 10. bathroom-stress's treelet layout built again from its BVH, timed;
+ 11. the schedule kernels against their plain walks on phase 7's camera and
+     shadow rays and on a scrambled batch, with the pre-pass and the exact
+     fallback, against traverse.cu, with times;
+ 12. the select kernels against their plain walks on phase 7's batches,
+     against traverse.cu, with times;
+ 13. the bathroom main path of phase 8 through the select kernels
+     (MCPT_TREELET_SELECT=smem dispatch), its film against phase 8's;
+ 14. phase 9's render through the select kernels, card against CPU.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure raises and exits
 nonzero; without a CUDA card the script exits 1 before printing a result.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -62,10 +72,29 @@ BATH_PASSES = 2
 # min(best_t, t_max); any: 6 compares and an add).
 TRAV_NODE_OPS = {"closest": 29, "any": 28}
 TRAV_TRI_OPS = {"closest": 55, "any": 54}
+SCHED_V = 512  # schedule capacity a tile (mcpt_tpu DEFAULT_V)
+# f32 operations of csrc/treelet.cu: per (ray, triangle) test, Moller-
+# Trumbore (27 mul, 17 add/sub, abs, compare, one division) and the accept
+# predicate (closest: 7 compares and 2 sub with the tie rule; any: 6
+# compares and an add); per (ray, box) entry key, 2 sub, 2 mul, min, max,
+# the 1.001 mul and the running max/min an axis, and max/min with the
+# interval's ends, the compare and the clamp at 0.
+TREELET_TRI_OPS = {"closest": 56, "any": 54}
+TREELET_KEY_OPS = 31
+# Rays of a 921,600-ray batch, and pixels of a 1280x720 film, on which a
+# treelet route may answer differently from the BVH walk: on a ray through
+# two leaves' shared face the walk culls the second leaf when the face's
+# slab entry computes to the running best_t, though the triangle there is
+# one ulp closer; the treelet kernels test whole treelets and keep it
+# (ROADMAP queue 3 item 4). Such rays are rare (0 in each batch of
+# phases 11-12, 1 pixel in phase 13's two passes), so more than this is a
+# fault.
+ROUTE_DIFF_MAX = 16
 
 
 def phase(name):
     def wrap(fn):
+        @functools.wraps(fn)
         def run(*a, **k):
             t0 = time.perf_counter()
             out = fn(*a, **k)
@@ -256,10 +285,14 @@ def check_kernels(scene):
     return out
 
 
-def _reset_counts():
-    from mcpt_tpu_torch.ops import traverse, woop
+def _kernel_modules():
+    from mcpt_tpu_torch.ops import schedule, select, traverse, woop
 
-    for mod in (woop, traverse):
+    return (("woop", woop), ("traverse", traverse), ("schedule", schedule), ("select", select))
+
+
+def _reset_counts():
+    for _, mod in _kernel_modules():
         for counts in (mod.LAUNCHES, mod.PLAIN_CALLS):
             for k in counts:
                 counts[k] = 0
@@ -267,10 +300,8 @@ def _reset_counts():
 
 def _read_counts():
     """(launches, plain calls) of every kernel, keyed as in the kernels line."""
-    from mcpt_tpu_torch.ops import traverse, woop
-
     launches, plain = {}, {}
-    for name, mod in (("woop", woop), ("traverse", traverse)):
+    for name, mod in _kernel_modules():
         launches.update({f"{name}_{k}": v for k, v in mod.LAUNCHES.items()})
         plain.update({f"{name}_{k}": v for k, v in mod.PLAIN_CALLS.items()})
     return launches, plain
@@ -280,7 +311,7 @@ def drive_main_path(scene, label, width, height, passes, family):
     """Render `passes` passes of 1 spp at 24 bounces with every count set to
     0 first; fail unless the kernels of `family` launched, no other kernel
     did, no plain version ran, no NaN was scrubbed and the film is finite
-    and positive. Returns the launches."""
+    and positive. Returns the launches and the film."""
     import numpy as np
 
     from mcpt_tpu_torch.render.renderer import RenderConfig, Renderer
@@ -308,12 +339,12 @@ def drive_main_path(scene, label, width, height, passes, family):
     with tempfile.TemporaryDirectory() as tmp:
         path = r.save(os.path.join(tmp, f"{label}.png"))
         print(f"saved a {os.path.getsize(path)}-byte PNG")
-    return launches
+    return launches, img
 
 
 @phase("4 veach main path")
 def main_path(scene):
-    return drive_main_path(scene, "veach", WIDTH, HEIGHT, PASSES, "woop")
+    return drive_main_path(scene, "veach", WIDTH, HEIGHT, PASSES, "woop")[0]
 
 
 @phase("5 small render, card vs CPU")
@@ -520,7 +551,8 @@ def check_traversal(scene):
     """Each traversal kernel against its plain version on the same sorted
     batch (the main path's order): 0 rays may differ, t/u/v bitwise. Closest
     hit on the scene camera's rays, any hit on shadow rays from their hits to
-    points on the light."""
+    points on the light. Returns the kernels' entries, the two batches
+    (packed, in pixel order) and the plain walks' counts on each."""
     import torch
 
     from mcpt_tpu_torch.ops import traverse as tv
@@ -541,7 +573,7 @@ def check_traversal(scene):
         order = tv.ray_sort_order(ts, rays[:, 0:3], rays[:, 4:7])
         return rays[order].contiguous(), order
 
-    out, results = [], {}
+    out, results, walks = [], {}, {}
     for kind in ("closest", "any"):
         if kind == "any":  # shadow rays from the closest hits (pixel order) to the light
             t, tri = results["closest"]
@@ -561,6 +593,7 @@ def check_traversal(scene):
         p = plain(ts, srt, counts)
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t0
+        walks[kind] = counts
         k = kern(ts, srt)
         torch.cuda.synchronize()
         if kind == "closest":
@@ -586,7 +619,7 @@ def check_traversal(scene):
                                  f"(bitwise {bitwise})")
         ms = cuda_time_ms(lambda: kern(ts, srt))
         ms_unsorted = cuda_time_ms(lambda: kern(ts, rays))
-        plain_ms = cuda_time_ms(lambda: plain(ts, srt))
+        plain_ms = cuda_time_ms(lambda: plain(ts, srt), reps=3)
         bound_ms, by = _traversal_bound(kind, counts, srt, ts)
         print(f"traverse_{kind}: kernel {ms:.4f} ms sorted, {ms_unsorted:.4f} ms unsorted "
               f"({ms_unsorted / ms:.2f}x), plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({by})")
@@ -594,12 +627,243 @@ def check_traversal(scene):
                     "replaces": "mcpt_tpu/ops/pallas/traverse.py:" + ("128" if kind == "closest" else "347"),
                     "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": by, "library_ms": None})
-    return out
+    return out, batches, walks
 
 
 @phase("8 bathroom main path")
 def bathroom_main_path(scene):
     return drive_main_path(scene, "bathroom", BATH_W, BATH_H, BATH_PASSES, "traverse")
+
+
+# ---------------------------------------------------------------------------
+# treelet layout, schedule and select kernels
+# ---------------------------------------------------------------------------
+
+@phase("10 treelet layout")
+def treelet_layout(scene):
+    """Build bathroom-stress's treelet layout again from its BVH, timed; it
+    must equal the one attach_bvh built and have 136 superblocks, 17,408
+    rows and 11,471 real treelets."""
+    import torch
+
+    from mcpt_tpu_torch.ops.treelets import build_treelets
+
+    bvh = {k: getattr(scene.bvh, k).cpu().numpy() for k in ("lo", "hi", "first", "count", "skip")}
+    t0 = time.perf_counter()
+    tl = build_treelets(bvh, scene.num_tris)
+    sec = time.perf_counter() - t0
+    real = int((tl.row_count > 0).sum())
+    print(f"treelets: built in {sec:.3f} s; NS {tl.ns}, NSp {tl.nsp}, G {tl.g}, real rows {real} "
+          f"({scene.num_tris / real:.1f} triangles a treelet, c {tl.c}, s_b {tl.s_b})")
+    same = all(torch.equal(torch.as_tensor(getattr(tl, k)), getattr(scene.treelets, k).cpu())
+               for k in ("sb_box", "blk_box", "row_first", "row_count"))
+    if (tl.ns, tl.g, real) != (136, 17_408, 11_471) or not same:
+        raise AssertionError(f"unexpected layout: NS {tl.ns}, G {tl.g}, real {real}, same as the scene's {same}")
+
+
+def _scrambled_batch(scene, n, seed=1):
+    """tools/bench_schedule.py make_batches' second batch: origins uniform
+    in 1.2 times the scene box about its centre, directions uniform."""
+    import torch
+
+    from mcpt_tpu_torch.ops.woop import F32_MAX, pack_rays
+    from mcpt_tpu_torch.render.integrator import RAY_EPS_REL
+
+    dev = scene.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lo, hi = scene.trav.nodes[0, 0:3], scene.trav.nodes[0, 4:7]
+    o = (lo + hi) / 2 + (torch.rand((n, 3), generator=g, device=dev) * 1.2 - 0.6) * (hi - lo)
+    d = torch.nn.functional.normalize(torch.randn((n, 3), generator=g, device=dev), dim=1)
+    return pack_rays(o, d, RAY_EPS_REL * scene.scale, F32_MAX)
+
+
+def _sorted_tiles(scene, rays):
+    """Packed rays as the treelet wrappers launch them: sorted, whole tiles."""
+    from mcpt_tpu_torch.ops.schedule import sorted_tiles
+
+    return sorted_tiles(scene, rays[:, 0:3], rays[:, 4:7], rays[:, 3], rays[:, 7])[0]
+
+
+def _agreement(kind, k, p):
+    """(rays whose results differ, bitwise, max abs error of t/u/v where the
+    ids agree) of a kernel's output against another's."""
+    import torch
+
+    if kind == "any":
+        n = int((k != p).sum())
+        return n, n == 0, float((k.int() - p.int()).abs().max())
+    both = (k[1] == p[1]) & (p[1] >= 0)
+    err = max(float((a[both] - b[both]).abs().max()) if both.any() else 0.0
+              for a, b in ((k[0], p[0]), (k[2], p[2]), (k[3], p[3])))
+    return int((k[1] != p[1]).sum()), all(torch.equal(a, b) for a, b in zip(k, p)), err
+
+
+def _examples(kind, got, want, n=4):
+    """A few rays whose answer differs, as text."""
+    import torch
+
+    if kind == "any":
+        idx = torch.nonzero(got != want)[:n, 0].tolist()
+        return [(i, bool(got[i]), bool(want[i])) for i in idx]
+    idx = torch.nonzero(got[1] != want[1])[:n, 0].tolist()
+    return [(i, int(got[1][i]), float(got[0][i]), int(want[1][i]), float(want[0][i])) for i in idx]
+
+
+def _packet_bound(kind, counts, rays, scene, extra_bytes):
+    """Least time (ms) of a treelet kernel's own algorithm: its triangle
+    tests (every tested ray of a block against every triangle of every
+    treelet the block visits) and entry keys times their f32 operations
+    over the FP32 rate, or its inputs read once and outputs written once
+    over the memory rate, whichever is longer. Printed beside bound_ms,
+    which is the function's (the BVH walk's tests on the same rays)."""
+    ops = counts["tri_tests"] * TREELET_TRI_OPS[kind] + counts.get("box_keys", 0) * TREELET_KEY_OPS
+    tl = scene.treelets
+    nbytes = (rays.shape[0] * (32 + (16 if kind == "closest" else 1)) + 4 * scene.trav.tris.numel()
+              + 4 * (tl.row_first.numel() + tl.row_count.numel()) + extra_bytes)
+    return 1e3 * max(ops / H100_FP32_OPS, nbytes / H100_BYTES)
+
+
+def _check_route(name, label, n_trav):
+    if n_trav > ROUTE_DIFF_MAX:
+        raise AssertionError(f"{name} answers differently from traverse.cu on {n_trav} rays of the {label} "
+                             f"batch (at most {ROUTE_DIFF_MAX} may)")
+
+
+def _walk_plain(plain, *args):
+    """One plain walk with its counts, and its wall ms (the device synced)."""
+    import torch
+
+    counts = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p = plain(*args, counts)
+    torch.cuda.synchronize()
+    return p, counts, 1e3 * (time.perf_counter() - t0)
+
+
+@phase("11 schedule kernels vs plain")
+def check_schedule(scene, batches, walks):
+    """Per 921,600-ray batch (the camera rays and shadow rays of phase 7,
+    and a scrambled batch that fills the fallback): the pre-pass, the kernel
+    against its plain walk on every tile (0 rays may differ, t/u/v bitwise),
+    the whole function (kernel, then traverse.cu on the incomplete tiles'
+    rays) against traverse.cu (at most ROUTE_DIFF_MAX rays may differ), and
+    the pre-pass, kernel and fallback times. bound_ms is the function's:
+    the BVH walk's node visits and triangle tests on the same rays (phase
+    7's counts, or a plain walk of the scrambled batch)."""
+    import torch
+
+    from mcpt_tpu_torch.ops import schedule as S
+    from mcpt_tpu_torch.ops import traverse as tv
+
+    tl, ts = scene.treelets, scene.trav
+    out = []
+    cases = (("camera", "closest", batches["closest"]), ("shadow", "any", batches["any"]),
+             ("scrambled", "closest", _scrambled_batch(scene, batches["closest"].shape[0])))
+    for label, kind, rays in cases:
+        srt = _sorted_tiles(scene, rays)
+        sched, inc, n_live = S.build_schedule(tl, srt, SCHED_V)
+        nl = n_live.float()
+        n_inc = int(inc.sum())
+        kern = getattr(S, f"{kind}_hit_schedule_kernel")
+        plain = getattr(S, f"{kind}_hit_schedule_plain")
+        p, counts, plain_ms = _walk_plain(plain, tl, ts.tris, srt, sched)
+        k = kern(tl, ts.tris, srt, sched)
+        n_diff, bitwise, err = _agreement(kind, k, p)
+        inc_ray = inc.repeat_interleave(S.RAY_TILE)
+        fb = srt.clone()
+        fb[:, 7] = torch.where(inc_ray, srt[:, 7], 0.0)
+        trav = getattr(tv, f"{kind}_hit_traverse_kernel")
+        f = trav(ts, fb)
+        whole = (tuple(torch.where(inc_ray, a, b) for a, b in zip(f, k)) if kind == "closest"
+                 else torch.where(inc_ray, f, k))
+        want = trav(ts, srt)
+        n_trav = _agreement(kind, whole, want)[0]
+        prepass_ms = cuda_time_ms(lambda: S.build_schedule(tl, srt, SCHED_V))
+        ms = cuda_time_ms(lambda: kern(tl, ts.tris, srt, sched))
+        fallback_ms = cuda_time_ms(lambda: trav(ts, fb)) if n_inc else 0.0
+        trav_counts = (_walk_plain(tv.closest_hit_traverse_plain, ts, srt)[1] if label == "scrambled"
+                       else walks[kind])
+        bound_ms, by = _traversal_bound(kind, trav_counts, srt, ts)
+        packet_ms = _packet_bound(kind, counts, srt, scene, 4 * sched.numel())
+        print(f"schedule_{kind} ({label}): {rays.shape[0]} rays, {sched.shape[0]} tiles, {n_inc} incomplete, "
+              f"live treelets a tile p50 {float(nl.quantile(0.5)):.0f} p99 {float(nl.quantile(0.99)):.0f}; "
+              f"{n_diff} rays differ from the plain walk on every tile (bitwise {bitwise}, max abs err "
+              f"{err:.3g}); {n_trav} differ from traverse.cu{' e.g. ' + str(_examples(kind, whole, want)) if n_trav else ''}; "
+              f"{counts.get('treelet_visits', 0)} treelet visits, {counts.get('tri_tests', 0)} triangle tests")
+        print(f"schedule_{kind} ({label}): pre-pass {prepass_ms:.3f} ms, kernel {ms:.4f} ms, fallback "
+              f"{fallback_ms:.4f} ms, plain walk {plain_ms:.1f} ms (one run), bound {bound_ms:.4f} ms ({by}; "
+              f"the BVH walk's tests), packet-test bound {packet_ms:.4f} ms (this kernel's tests)")
+        if n_diff or not bitwise:
+            raise AssertionError(f"schedule_{kind} kernel differs from its plain walk on {n_diff} rays "
+                                 f"(bitwise {bitwise}) of the {label} batch")
+        _check_route(f"schedule_{kind}", label, n_trav)
+        if label != "scrambled":
+            out.append({"name": f"schedule_{kind}", "route": "cuda", "source": "mcpt_tpu_torch/csrc/treelet.cu",
+                        "replaces": "mcpt_tpu/ops/pallas/schedule.py:" + ("253" if kind == "closest" else "361"),
+                        "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": by, "library_ms": None})
+    return out
+
+
+@phase("12 select kernels vs plain")
+def check_select(scene, batches, walks):
+    """The select kernels against their plain walks on the camera and shadow
+    batches of phase 7 (0 rays may differ, t/u/v bitwise), against
+    traverse.cu (at most ROUTE_DIFF_MAX rays may differ), and their times;
+    bound_ms as in phase 11."""
+    from mcpt_tpu_torch.ops import select as SL
+    from mcpt_tpu_torch.ops import traverse as tv
+
+    tl, ts = scene.treelets, scene.trav
+    out = []
+    for label, kind in (("camera", "closest"), ("shadow", "any")):
+        srt = _sorted_tiles(scene, batches[kind])
+        kern = getattr(SL, f"{kind}_hit_select_kernel")
+        p, counts, plain_ms = _walk_plain(getattr(SL, f"{kind}_hit_select_plain"), tl, ts.tris, srt)
+        k = kern(tl, ts.tris, srt)
+        n_diff, bitwise, err = _agreement(kind, k, p)
+        want = getattr(tv, f"{kind}_hit_traverse_kernel")(ts, srt)
+        n_trav = _agreement(kind, k, want)[0]
+        ms = cuda_time_ms(lambda: kern(tl, ts.tris, srt))
+        bound_ms, by = _traversal_bound(kind, walks[kind], srt, ts)
+        packet_ms = _packet_bound(kind, counts, srt, scene, 4 * (tl.sb_box.numel() + tl.blk_box.numel()))
+        print(f"select_{kind} ({label}): {srt.shape[0]} rays; {n_diff} rays differ from the plain walk "
+              f"on every tile (bitwise {bitwise}, max abs err {err:.3g}); {n_trav} differ from traverse.cu"
+              f"{' e.g. ' + str(_examples(kind, k, want)) if n_trav else ''}; {counts.get('treelet_visits', 0)} "
+              f"treelet visits, {counts.get('tri_tests', 0)} triangle tests, {counts.get('box_keys', 0)} entry keys")
+        print(f"select_{kind} ({label}): kernel {ms:.4f} ms, plain walk {plain_ms:.1f} ms (one run), "
+              f"bound {bound_ms:.4f} ms ({by}; the BVH walk's tests), packet-test bound {packet_ms:.4f} ms "
+              f"(this kernel's tests)")
+        if n_diff or not bitwise:
+            raise AssertionError(f"select_{kind} kernel differs from its plain walk on {n_diff} rays "
+                                 f"(bitwise {bitwise})")
+        _check_route(f"select_{kind}", label, n_trav)
+        out.append({"name": f"select_{kind}", "route": "cuda", "source": "mcpt_tpu_torch/csrc/treelet.cu",
+                    "replaces": "mcpt_tpu/ops/pallas/select.py:" + ("80" if kind == "closest" else "258"),
+                    "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": by, "library_ms": None})
+    return out
+
+
+@phase("13 bathroom main path, select kernels")
+def bathroom_select_path(scene, film8):
+    """Phase 8's render with MCPT_TREELET_SELECT=smem dispatch: only the
+    select kernels launch; the film against phase 8's, pixel by pixel (at
+    most ROUTE_DIFF_MAX pixels may differ)."""
+    from mcpt_tpu_torch.ops import intersect
+
+    intersect.TREELET_SELECT = "smem"
+    try:
+        launches, img = drive_main_path(scene, "bathroom-select", BATH_W, BATH_H, BATH_PASSES, "select")
+    finally:
+        intersect.TREELET_SELECT = "vote"
+    diff = (img != film8).any(dim=-1)
+    print(f"film against phase 8's: {int(diff.sum())} of {diff.numel()} pixels differ, max abs difference "
+          f"{float((img - film8).abs().max()):.3g}")
+    if int(diff.sum()) > ROUTE_DIFF_MAX:
+        raise AssertionError(f"{int(diff.sum())} pixels differ from phase 8's film (at most {ROUTE_DIFF_MAX} may)")
+    return launches
 
 
 def _render_contract(label, a, b):
@@ -628,6 +892,19 @@ def small_stress_reference():
     _render_contract(f"stress-{SMALL_STRESS_TRIS} 64x48x2spp", *imgs)
 
 
+@phase("14 small stress render through the select kernels, card vs CPU")
+def small_select_reference():
+    """Phase 9's render with MCPT_TREELET_SELECT=smem: the select kernels on
+    the card, their plain walks on the CPU."""
+    from mcpt_tpu_torch.ops import intersect
+
+    intersect.TREELET_SELECT = "smem"
+    try:
+        small_stress_reference.__wrapped__()
+    finally:
+        intersect.TREELET_SELECT = "vote"
+
+
 def main() -> int:
     import torch
 
@@ -650,12 +927,20 @@ def main() -> int:
     small_reference(scene)
     del scene
     bath = bathroom_scene()
-    kernels += check_traversal(bath)
-    launches.update({k: v for k, v in bathroom_main_path(bath).items() if k.startswith("traverse_")})
+    trav_kernels, batches, walks = check_traversal(bath)
+    kernels += trav_kernels
+    launches8, film8 = bathroom_main_path(bath)
+    launches.update({k: v for k, v in launches8.items() if k.startswith(("traverse_", "schedule_"))})
+    treelet_layout(bath)
+    kernels += check_schedule(bath, batches, walks)
+    kernels += check_select(bath, batches, walks)
+    del batches
+    launches.update({k: v for k, v in bathroom_select_path(bath, film8).items() if k.startswith("select_")})
     for k in kernels:
         k["launches"] = launches[k["name"]]
-    del bath
+    del bath, film8
     small_stress_reference()
+    small_select_reference()
     print(f"total {time.perf_counter() - t_start:.2f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

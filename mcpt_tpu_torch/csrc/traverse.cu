@@ -19,12 +19,8 @@
 // rays so that a warp's rays are coherent. There is no shared memory and no
 // __syncthreads(), so a thread leaves as soon as its walk ends.
 //
-// Arithmetic. Every operation is explicitly rounded (__fmul_rn, __fadd_rn,
-// __fsub_rn, __fdiv_rn), with no fused multiply-add, in the order of the
-// plain torch version in ops/traverse.py; min and max propagate NaN as
-// torch.minimum/maximum do (fminf/fmaxf would drop it: a ray parallel to a
-// box plane that starts on it gives 0 * inf = NaN and must miss the box).
-// So the kernel and its plain version agree bit for bit.
+// Arithmetic: ray_common.cuh's, single rounded f32 operations in the plain
+// version's order (ops/traverse.py), so the two agree bit for bit.
 //
 // Loops are bounded: the cursor only moves forward (node + 1, or skip >
 // node), and the walk is capped at n_nodes steps anyway; the leaf loop at
@@ -35,32 +31,12 @@
 // read per visit; the visits are data-dependent and the reads scattered.
 // A wider BVH, an ordered stack and shared-memory staging are later work.
 
-#include <cfloat>
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "ray_common.cuh"
 
 namespace {
 
 constexpr int kBlock = 128;   // rays per block (ops/traverse.py RAY_TILE)
 constexpr int kLeafSize = 4;  // ops/bvh.py DEFAULT_LEAF_SIZE
-constexpr float kParked = 1e29f;  // |origin| of a parked lane (ops/woop.py PARKED)
-constexpr float kFarFudge = 1.001f;
-constexpr float kDetClosest = 1e-5f;
-constexpr float kDetAny = 1e-6f;
-
-// NaN-propagating min and max (torch.minimum / torch.maximum).
-__device__ __forceinline__ float min_nan(float a, float b) { return (a < b || a != a) ? a : b; }
-__device__ __forceinline__ float max_nan(float a, float b) { return (a > b || a != a) ? a : b; }
-
-// A ray is walked when its [t_lo, t_hi] is not empty and its origin is not
-// parked; any other ray misses (NaN compares false).
-__device__ __forceinline__ bool tested(float4 a, float4 b) {
-  return a.w < b.w && fabsf(a.x) < kParked && fabsf(a.y) < kParked && fabsf(a.z) < kParked;
-}
-
-struct Ray {
-  float ox, oy, oz, dx, dy, dz, ix, iy, iz;
-};
 
 // Slab test of node box (lo = na.xyz, hi = nb.xyz) over [t_lo, t_hi].
 __device__ __forceinline__ bool slab(const float4 na, const float4 nb, const Ray& r, float t_lo,
@@ -80,51 +56,10 @@ __device__ __forceinline__ bool slab(const float4 na, const float4 nb, const Ray
   return tmin < tmax;
 }
 
-struct Tuv {
-  float t, u, v;
-  bool ok;
-};
-
 // Moller-Trumbore of triangle `id` (tris rows of three float4: v0, e1, e2).
 __device__ __forceinline__ Tuv mt(const float4* __restrict__ tris, int id, const Ray& r,
                                   float det_eps) {
-  const float4 p = __ldg(&tris[3 * id]);
-  const float4 e1 = __ldg(&tris[3 * id + 1]);
-  const float4 e2 = __ldg(&tris[3 * id + 2]);
-  const float hx = __fsub_rn(__fmul_rn(r.dy, e2.z), __fmul_rn(r.dz, e2.y));
-  const float hy = __fsub_rn(__fmul_rn(r.dz, e2.x), __fmul_rn(r.dx, e2.z));
-  const float hz = __fsub_rn(__fmul_rn(r.dx, e2.y), __fmul_rn(r.dy, e2.x));
-  const float det =
-      __fadd_rn(__fadd_rn(__fmul_rn(e1.x, hx), __fmul_rn(e1.y, hy)), __fmul_rn(e1.z, hz));
-  const float sx = __fsub_rn(r.ox, p.x), sy = __fsub_rn(r.oy, p.y), sz = __fsub_rn(r.oz, p.z);
-  const float u = __fadd_rn(__fadd_rn(__fmul_rn(sx, hx), __fmul_rn(sy, hy)), __fmul_rn(sz, hz));
-  const float qx = __fsub_rn(__fmul_rn(sy, e1.z), __fmul_rn(sz, e1.y));
-  const float qy = __fsub_rn(__fmul_rn(sz, e1.x), __fmul_rn(sx, e1.z));
-  const float qz = __fsub_rn(__fmul_rn(sx, e1.y), __fmul_rn(sy, e1.x));
-  const float v = __fadd_rn(__fadd_rn(__fmul_rn(r.dx, qx), __fmul_rn(r.dy, qy)), __fmul_rn(r.dz, qz));
-  const float t =
-      __fadd_rn(__fadd_rn(__fmul_rn(e2.x, qx), __fmul_rn(e2.y, qy)), __fmul_rn(e2.z, qz));
-  Tuv h;
-  h.ok = fabsf(det) >= det_eps;
-  const float inv = h.ok ? __fdiv_rn(1.0f, det) : 0.0f;
-  h.t = __fmul_rn(t, inv);
-  h.u = __fmul_rn(u, inv);
-  h.v = __fmul_rn(v, inv);
-  return h;
-}
-
-__device__ __forceinline__ Ray make_ray(float4 a, float4 b) {
-  Ray r;
-  r.ox = a.x;
-  r.oy = a.y;
-  r.oz = a.z;
-  r.dx = b.x;
-  r.dy = b.y;
-  r.dz = b.z;
-  r.ix = __fdiv_rn(1.0f, b.x);
-  r.iy = __fdiv_rn(1.0f, b.y);
-  r.iz = __fdiv_rn(1.0f, b.z);
-  return r;
+  return mt_tri(__ldg(&tris[3 * id]), __ldg(&tris[3 * id + 1]), __ldg(&tris[3 * id + 2]), r, det_eps);
 }
 
 __global__ void __launch_bounds__(kBlock)

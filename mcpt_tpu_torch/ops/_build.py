@@ -2,9 +2,11 @@
 
 Two libraries, each with a plain C interface (no PyTorch headers), so each
 builds in seconds:
-  * the CUDA kernels: every csrc/*.cu in one nvcc call (`build`, `library`);
+  * the CUDA kernels: every csrc/*.cu with nvcc (`build`, `library`);
   * the host BVH builder: csrc/host/bvh_sah.cpp with g++ (`build_host`,
     `host_library`).
+Each source is compiled to an object by a compiler process of its own, all
+started together, and the objects are linked by one more.
 Each goes to mcpt_tpu_torch/_build/, named by a hash of its sources and
 command line, is published with an atomic rename (several test workers may
 build at once), and is reused while neither changes. Nothing is built when
@@ -25,11 +27,13 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+NVCC_LINK_FLAGS = ["-shared", "-gencode", "arch=compute_90a,code=sm_90a"]
 HOST_SRC = os.path.join(CSRC_DIR, "host", "bvh_sah.cpp")
 # No -march=native and no contraction: the builder's output must not depend
 # on the host CPU (the source writes its two fused multiply-adds as std::fma).
-GXX_FLAGS = ["-O3", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC"]
+GXX_FLAGS = ["-O3", "-std=c++17", "-ffp-contract=off", "-fPIC"]
+GXX_LINK_FLAGS = ["-shared"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points and their argument types; every pointer and the stream are
@@ -39,6 +43,10 @@ SIGNATURES = {
     "woop_any": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
     "traverse_closest": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
     "traverse_any": [_P, _P, _P, _I, _I, _P, _P],
+    "schedule_closest": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    "schedule_any": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "select_closest": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "select_any": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
 }
 
 _lib = None
@@ -60,11 +68,24 @@ def _nvcc() -> str:
     return found
 
 
-def _compile(compiler: str, flags: list[str], srcs: list[str], inputs: list[str], name: str,
-             info: dict) -> str:
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands at once; their joined output, or raise on a failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, o in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"{os.path.basename(c[0])} failed ({p.returncode}): {' '.join(c)}\n{o}")
+    return "".join(outs)
+
+
+def _compile(compiler: str, flags: list[str], link_flags: list[str], srcs: list[str],
+             inputs: list[str], name: str, info: dict) -> str:
     """Compile `inputs` into _build/<name>_<hash>.so unless built already; the
-    hash covers `srcs` and the flags. Returns the library's path."""
-    h = hashlib.sha256(" ".join(flags).encode())
+    hash covers `srcs` and the flags. Each input is compiled to an object by
+    a process of its own, all at once, and the objects are linked with
+    `link_flags`. Returns the library's path."""
+    h = hashlib.sha256(" ".join(flags + link_flags).encode())
     for s in srcs:
         with open(s, "rb") as f:
             h.update(os.path.basename(s).encode() + f.read())
@@ -73,22 +94,27 @@ def _compile(compiler: str, flags: list[str], srcs: list[str], inputs: list[str]
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.tmp{os.getpid()}"
-    cmd = [compiler, *flags, "-o", tmp, *inputs]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    info.update(seconds=time.perf_counter() - t0, cmd=" ".join(cmd),
-                output=proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"{os.path.basename(compiler)} failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in inputs]
+    cmds = [[compiler, *flags, "-c", "-o", o, s] for o, s in zip(objs, inputs)]
+    try:
+        output = _run_all(cmds)
+        cmds.append([compiler, *link_flags, "-o", tmp, *objs])
+        output += _run_all(cmds[-1:])
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+    info.update(seconds=time.perf_counter() - t0, cmd="\n".join(" ".join(c) for c in cmds), output=output)
     os.replace(tmp, out)  # atomic: a concurrent builder sees the old name or the whole file
     return out
 
 
 def build() -> str:
-    """Compile every csrc/*.cu into one .so (if not built yet); return its path."""
+    """Compile every csrc/*.cu, one nvcc process a source, all at once, and
+    link them into one .so (if not built yet); return its path."""
     srcs = sources()
-    return _compile(_nvcc(), NVCC_FLAGS, srcs, [s for s in srcs if s.endswith(".cu")],
+    return _compile(_nvcc(), NVCC_FLAGS, NVCC_LINK_FLAGS, srcs, [s for s in srcs if s.endswith(".cu")],
                     "libmcpt_kernels", last_build)
 
 
@@ -97,7 +123,7 @@ def build_host() -> str:
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError("g++ not found on PATH (needed for the host BVH builder)")
-    return _compile(gxx, GXX_FLAGS, [HOST_SRC], [HOST_SRC], "libmcpt_host", last_host_build)
+    return _compile(gxx, GXX_FLAGS, GXX_LINK_FLAGS, [HOST_SRC], [HOST_SRC], "libmcpt_host", last_host_build)
 
 
 def library() -> ctypes.CDLL:

@@ -57,8 +57,14 @@ def _build_bvh_sah(v0, e1, e2, leaf_size=DEFAULT_LEAF_SIZE):
 
 def attach_bvh(scene: Scene, leaf_size: int = DEFAULT_LEAF_SIZE) -> Scene:
     """Build a BVH for a host (numpy) scene, permute its triangles into leaf
-    order and attach the flat arrays."""
+    order and attach the flat arrays; above 4,096 triangles also the
+    treelet layout (ops/treelets.py), as mcpt_tpu's attach_bvh does."""
+    from mcpt_tpu_torch.ops.intersect import BRUTE_FORCE_MAX_TRIS
+    from mcpt_tpu_torch.ops.treelets import build_treelets
+
     g = scene.geom
     nodes, perm = _build_bvh_sah(g.v0, g.e1, g.e2, leaf_size)
     scene = permute_scene_tris(scene, perm)
-    return dataclasses.replace(scene, bvh=FlatBVH(**nodes))
+    T = scene.num_tris
+    treelets = build_treelets(nodes, T) if T > BRUTE_FORCE_MAX_TRIS else None
+    return dataclasses.replace(scene, bvh=FlatBVH(**nodes), treelets=treelets)

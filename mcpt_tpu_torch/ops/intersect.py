@@ -14,10 +14,15 @@ Dispatch by triangle count:
     hand-written Woop kernel pair (ops/woop.py, csrc/woop.cu);
   * T > BRUTE_FORCE_MAX_TRIS (bathroom): the hand-written BVH traversal
     kernel pair (ops/traverse.py, csrc/traverse.cu), which needs the
-    scene's BVH.
+    scene's BVH; with MCPT_TREELET_SELECT=smem, the superblock-select
+    treelet kernel pair instead (ops/select.py, csrc/treelet.cu), which
+    needs the scene's treelet layout too. mcpt_tpu reads the same variable
+    (mcpt_tpu/ops/pallas/traverse.py TREELET_SELECT); both give the same
+    hits.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Optional
 
@@ -36,6 +41,13 @@ _RAY_BLOCK = 1 << 14  # rays per dense wave, bounds the [R, C] temporaries
 
 BRUTE_FORCE_MAX_TRIS = 4096
 DENSE_KERNEL_MIN_TRIS = 256
+
+# Treelet selection of the large-scene route: "vote" (the BVH traversal
+# kernels, the default) or "smem" (the select kernels). Read at each call,
+# so a test can set the attribute.
+TREELET_SELECT = os.environ.get("MCPT_TREELET_SELECT", "vote")
+if TREELET_SELECT not in ("vote", "smem"):
+    raise ValueError(f"MCPT_TREELET_SELECT={TREELET_SELECT!r} not in ('vote', 'smem')")
 
 
 @dataclass(frozen=True)
@@ -185,7 +197,17 @@ def _traversal_set(scene):
     return scene.trav
 
 
+def uses_select_kernel(scene) -> bool:
+    """Does dispatch run the select treelet kernel pair for this scene?"""
+    return uses_traversal_kernel(scene) and TREELET_SELECT == "smem"
+
+
 def closest_hit(scene: Scene, org, dirn, t_min=T_MIN, t_max=F32_MAX) -> Hit:
+    if uses_select_kernel(scene):
+        from mcpt_tpu_torch.ops.select import closest_hit_select
+
+        t, tri, u, v = closest_hit_select(scene, org, dirn, t_min, t_max)
+        return Hit(t=t, tri=tri, u=u, v=v)
     if uses_traversal_kernel(scene):
         from mcpt_tpu_torch.ops.traverse import closest_hit_traverse
 
@@ -200,6 +222,10 @@ def closest_hit(scene: Scene, org, dirn, t_min=T_MIN, t_max=F32_MAX) -> Hit:
 
 
 def any_hit(scene: Scene, org, dirn, t_min=T_MIN, t_max=F32_MAX) -> torch.Tensor:
+    if uses_select_kernel(scene):
+        from mcpt_tpu_torch.ops.select import any_hit_select
+
+        return any_hit_select(scene, org, dirn, t_min, t_max)
     if uses_traversal_kernel(scene):
         from mcpt_tpu_torch.ops.traverse import any_hit_traverse
 

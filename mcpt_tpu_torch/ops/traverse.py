@@ -6,9 +6,10 @@ any_hit_treelets) onto the skip-link walk of mcpt_tpu/ops/traverse.py
 (closest_hit_bvh / any_hit_bvh). The TPU kernel cuts the BVH into
 superblocks and treelets because a TPU core tests 128 rays against 128
 triangles at once and must stage both in VMEM; a GPU thread walks its own
-ray, so the port walks FlatBVH directly and the treelet layout
-(mcpt_tpu/ops/treelets.py) is not carried over. Results are those of the
-treelet kernel: (t, tri, u, v) for closest hit, a bool for any hit.
+ray, so this pair walks FlatBVH directly; the treelet layout
+(ops/treelets.py) serves the select and schedule pairs (ops/select.py,
+ops/schedule.py). Results are those of the treelet kernel: (t, tri, u, v)
+for closest hit, a bool for any hit.
 
 The walk, per ray, from the root: test the node's box (the reference's slab
 test, src/AABB.cpp:25-36: far * 1.001, strict tmin < tmax, over
@@ -122,13 +123,14 @@ def _slab(nd, o, inv, t_lo, t_hi):
 
 
 def _mt(tri, o, d, det_eps):
-    """Moller-Trumbore of each lane's triangle (rows of `tris`) in the
-    kernel's order: t, u, v, ok."""
-    v0x, v0y, v0z = tri[:, 0], tri[:, 1], tri[:, 2]
-    e1x, e1y, e1z = tri[:, 4], tri[:, 5], tri[:, 6]
-    e2x, e2y, e2z = tri[:, 8], tri[:, 9], tri[:, 10]
-    ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
-    dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
+    """Moller-Trumbore of triangles (rows of `tris`, last axis) against rays
+    (o, d: last axis xyz), broadcast over the other axes, in the kernel's
+    order: t, u, v, ok."""
+    v0x, v0y, v0z = tri[..., 0], tri[..., 1], tri[..., 2]
+    e1x, e1y, e1z = tri[..., 4], tri[..., 5], tri[..., 6]
+    e2x, e2y, e2z = tri[..., 8], tri[..., 9], tri[..., 10]
+    ox, oy, oz = o[..., 0], o[..., 1], o[..., 2]
+    dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
     hx = dy * e2z - dz * e2y
     hy = dz * e2x - dx * e2z
     hz = dx * e2y - dy * e2x

@@ -100,6 +100,8 @@ class Scene:
     woop: Optional[object] = None
     # BVH traversal kernel tables (ops/traverse.TraversalSet), built once per scene.
     trav: Optional[object] = None
+    # Treelet layout of the BVH (ops/treelets.TreeletSet), above 4,096 triangles.
+    treelets: Optional[object] = None
     # Scene bbox diagonal; secondary-ray t_min is RAY_EPS_REL * scale.
     scale: float = 1.0
     num_verts: int = 0
@@ -240,20 +242,32 @@ def scene_from_arrays(d: dict, device=None) -> Scene:
     Keys: geom.{v0,e1,e2,vn,uv,mat_id,area[,vert_idx]},
     mats.{kd,ks,ns,radiance,tex_id,tr,ni}, atlas.{data,size}, light_tris,
     camera.{eye,lookat,up,fovy,width,height}, scale, num_verts and, when the
-    scene has a BVH, bvh.{lo,hi,first,count,skip}. Triangles keep the given
-    order, so triangle ids match the source exactly.
+    scene has a BVH, bvh.{lo,hi,first,count,skip}, and with it, optionally,
+    an mcpt_tpu TreeletSet's treelets.{sb_box,blk_box,tri}. Triangles keep
+    the given order, so triangle ids match the source exactly. A scene with
+    a BVH above 4,096 triangles and no treelets gets the layout built from
+    its BVH.
     """
     geom = Geometry(**{k: d.get("geom." + k) for k in _GEOM_KEYS})
     mats = Materials(**{k: d["mats." + k] for k in _MAT_KEYS})
     cam = Camera(**{k: d["camera." + k] for k in _CAM_KEYS},
                  width=int(d["camera.width"]), height=int(d["camera.height"]))
-    bvh = None
+    from mcpt_tpu_torch.ops import treelets as tl
+    from mcpt_tpu_torch.ops.intersect import BRUTE_FORCE_MAX_TRIS
+
+    bvh = treelets = None
+    n_tris = np.asarray(d["geom.v0"]).shape[0]
     if "bvh.lo" in d:
         bvh = FlatBVH(**{k: d["bvh." + k] for k in _BVH_KEYS})
+        if "treelets.sb_box" in d:
+            treelets = tl.treelets_from_jax(d["treelets.sb_box"], d["treelets.blk_box"],
+                                            d["treelets.tri"], n_tris)
+        elif n_tris > BRUTE_FORCE_MAX_TRIS:
+            treelets = tl.build_treelets(bvh, n_tris)
     scene = Scene(
         geom=geom, mats=mats,
         atlas=TextureAtlas(data=d["atlas.data"], size=d["atlas.size"]),
-        light_tris=d["light_tris"], camera=cam, bvh=bvh,
+        light_tris=d["light_tris"], camera=cam, bvh=bvh, treelets=treelets,
         scale=float(d["scale"]), num_verts=int(d.get("num_verts", 0)),
     )
     return finalize_scene(to_device(scene, device))

@@ -1,5 +1,36 @@
 """mcpt_tpu_torch's BSDF against mcpt_tpu's: the same lobes, directions and
-uniforms (numpy, fixed seed) through both; fx, pdf and sample at rtol 1e-5."""
+uniforms (numpy) through both.
+
+Inputs come from a generator of this module's own over the fixed SEEDS, so
+they do not depend on which test files ran before on the same worker.
+
+Tolerances. Everything is held at rtol 1e-5 (atol 1e-6), except where
+pow(h_z, ns) amplifies a rounding: h_z comes out of normalize() and may
+differ by one ulp (relative 2^-23) between the two packages, which pow
+turns into (1 + 2^-23)^ns - 1; the rest of the chain (log, the product with
+ns, exp, the lobe factor, ks and the diffuse term: eight operations, each
+rounded once on each side) adds 16 * 2^-24. So glossy lanes are held at
+max(1e-5, (1 + 2^-23)^ns - 1 + 16 * 2^-24).
+
+A sampled direction is not one ulp off: torch's CPU sin/cos/exp/log round
+differently from XLA's, and wi moves by up to ~220 ulps a component. So the
+sample is checked in parts that together cannot hide a wrong lobe:
+  * the lobe each lane drew (mirror, glossy, diffuse or none), read off the
+    outputs, and the mirror flag: bitwise;
+  * wi against JAX's at atol 2e-5 plus the lane tolerance; on glossy lanes
+    plus 4 * (|d sin| + d): the half vector's cos = u2^(1/(ns+1)) may differ
+    by d = 2 ulps (two roundings of exp/log on each side), which moves
+    sin = sqrt(1 - cos^2) by |d sin| (computed in float64; ~ d * cos / sin,
+    large where sin is small), and wi = 2 (h.wo) h - wo moves by at most four
+    times the change of h;
+  * f against JAX's bsdf_fx at the port's own wi (the sampled f is the
+    mixture's Fx at wi), and pdf against JAX's bsdf_pdf at the port's own wi
+    where the lane drew the diffuse lobe (its pdf depends on wi alone); on
+    glossy lanes the pdf comes from the sampled half vector, not from wi, and
+    is held against JAX's pdf, with the diffuse term's share of the wi
+    tolerance added; mirror lanes and lanes with pdf 0 do not depend on wi
+    and are held against JAX's outputs directly.
+"""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -8,18 +39,22 @@ import torch
 from tests.torch_parity import to_numpy
 
 RTOL, ATOL = 1e-5, 1e-6
+ULP = 2.0**-23
+WI_ATOL = 2e-5
+# 1236 and 1242 failed a one-ulp tolerance on f; 1393 and 1516 a fixed 2e-5 on wi
+SEEDS = (1234, 1236, 1242, 1281, 1351, 1393, 1509, 1516)
 
 
 def _lane_rtol(ns, ndim):
-    """pow(h, ns) moves by ns ulps when h moves by one, so glossy lanes get
-    rtol max(1e-5, ns * 2^-23); lanes with ns <= 83 stay at 1e-5."""
-    r = np.maximum(RTOL, ns.astype(np.float64) * 2.0**-23)
+    """max(1e-5, (1 + 2^-23)^ns - 1 + 16 * 2^-24) a lane (module docstring)."""
+    ns = ns.astype(np.float64)
+    r = np.maximum(RTOL, np.expm1(ns * np.log1p(ULP)) + 16 * ULP / 2)
     return r if ndim == 1 else r[:, None]
 
 
-def _assert_close(got, want, ns, atol=ATOL, err_msg=""):
+def _assert_close(got, want, ns, atol=ATOL, extra=0.0, err_msg=""):
     got, want = to_numpy(got).astype(np.float64), np.asarray(want).astype(np.float64)
-    tol = atol + _lane_rtol(ns, want.ndim) * np.abs(want)
+    tol = atol + extra + _lane_rtol(ns, want.ndim) * np.abs(want)
     bad = ~(np.abs(got - want) <= tol) & ~(np.isnan(got) & np.isnan(want))
     assert not bad.any(), f"{err_msg}: {bad.sum()} of {bad.size} out of tolerance, e.g. {got[bad][:4]} vs {want[bad][:4]}"
 
@@ -47,41 +82,71 @@ def _lobes(kd, ks, ns):
             tb(torch.from_numpy(kd), torch.from_numpy(ks), torch.from_numpy(ns)))
 
 
-def test_build_lobes_matches_jax(rng):
-    kd, ks, ns, *_ = _inputs(rng)
-    jl, tl = _lobes(kd, ks, ns)
-    for name in ("kd", "ks", "ns", "has_spec", "is_mirror", "w_d", "w_s"):
-        np.testing.assert_allclose(to_numpy(getattr(tl, name)), np.asarray(getattr(jl, name)),
-                                   rtol=RTOL, atol=ATOL, err_msg=name)
+def test_build_lobes_matches_jax():
+    for seed in SEEDS:
+        kd, ks, ns, *_ = _inputs(np.random.default_rng(seed))
+        jl, tl = _lobes(kd, ks, ns)
+        for name in ("kd", "ks", "ns", "has_spec", "is_mirror", "w_d", "w_s"):
+            np.testing.assert_allclose(to_numpy(getattr(tl, name)), np.asarray(getattr(jl, name)),
+                                       rtol=RTOL, atol=ATOL, err_msg=f"seed {seed} {name}")
 
 
 @pytest.mark.parametrize("fn", ["bsdf_fx", "bsdf_pdf", "glossy_fx", "glossy_pdf", "diffuse_pdf"])
-def test_eval_matches_jax(rng, fn):
+def test_eval_matches_jax(fn):
     from mcpt_tpu.render import bsdf as JB
     from mcpt_tpu_torch.render import bsdf as TB
 
-    kd, ks, ns, wo, wi, _ = _inputs(rng)
-    jl, tl = _lobes(kd, ks, ns)
-    if fn == "diffuse_pdf":
-        want = JB.diffuse_pdf(jnp.asarray(wo), jnp.asarray(wi))
-        got = TB.diffuse_pdf(torch.from_numpy(wo), torch.from_numpy(wi))
-    else:
-        want = getattr(JB, fn)(jl, jnp.asarray(wo), jnp.asarray(wi))
-        got = getattr(TB, fn)(tl, torch.from_numpy(wo), torch.from_numpy(wi))
-    _assert_close(got, want, ns, err_msg=fn)
+    for seed in SEEDS:
+        kd, ks, ns, wo, wi, _ = _inputs(np.random.default_rng(seed))
+        jl, tl = _lobes(kd, ks, ns)
+        if fn == "diffuse_pdf":
+            want = JB.diffuse_pdf(jnp.asarray(wo), jnp.asarray(wi))
+            got = TB.diffuse_pdf(torch.from_numpy(wo), torch.from_numpy(wi))
+        else:
+            want = getattr(JB, fn)(jl, jnp.asarray(wo), jnp.asarray(wi))
+            got = getattr(TB, fn)(tl, torch.from_numpy(wo), torch.from_numpy(wi))
+        _assert_close(got, want, ns, err_msg=f"seed {seed} {fn}")
 
 
-def test_sample_matches_jax(rng):
-    from mcpt_tpu.render.bsdf import bsdf_sample as js
+def _drawn_lobe(wi, pdf, mirror, u):
+    """0: pdf 0, 1: mirror, 2: diffuse (wi within 1e-4 of the cosine sample
+    that u1, u2 give in float64), 3: glossy."""
+    phi = u[1].astype(np.float64) * 2.0 * np.pi
+    th = 0.5 * np.arccos(np.clip(1.0 - 2.0 * u[2].astype(np.float64), -1.0, 1.0))
+    wd = np.stack([np.sin(th) * np.cos(phi), np.sin(th) * np.sin(phi), np.cos(th)], axis=1)
+    diffuse = np.abs(wi.astype(np.float64) - wd).max(axis=1) < 1e-4
+    return np.where(pdf <= 0, 0, np.where(mirror, 1, np.where(diffuse, 2, 3)))
+
+
+def test_sample_matches_jax():
+    from mcpt_tpu.render import bsdf as JB
     from mcpt_tpu_torch.render.bsdf import bsdf_sample as ts
 
-    kd, ks, ns, wo, _, u = _inputs(rng)
-    jl, tl = _lobes(kd, ks, ns)
-    want = js(jl, jnp.asarray(wo), *map(jnp.asarray, u))
-    got = ts(tl, torch.from_numpy(wo), *map(torch.from_numpy, u))
-    # wi is a unit vector whose glossy sample takes sin = sqrt(1 - cos^2):
-    # a one-ulp difference in pow's cos moves a small sin by ulp/sin, so its
-    # components are held at 2e-5 absolute
-    for name, w, g in zip(("wi", "f", "pdf", "mirror"), want, got):
-        atol = 2e-5 if name == "wi" else ATOL
-        _assert_close(g, w, ns, atol=atol, err_msg=name)
+    for seed in SEEDS:
+        kd, ks, ns, wo, _, u = _inputs(np.random.default_rng(seed))
+        jl, tl = _lobes(kd, ks, ns)
+        jwi, jf, jpdf, jmir = (np.asarray(x) for x in JB.bsdf_sample(jl, jnp.asarray(wo), *map(jnp.asarray, u)))
+        wi, f, pdf, mir = (to_numpy(x) for x in ts(tl, torch.from_numpy(wo), *map(torch.from_numpy, u)))
+        msg = f"seed {seed}"
+        np.testing.assert_array_equal(mir, jmir, err_msg=f"{msg} mirror")
+        lobe = _drawn_lobe(wi, pdf, mir, u)
+        np.testing.assert_array_equal(lobe, _drawn_lobe(jwi, jpdf, jmir, u), err_msg=f"{msg} lobe")
+        assert {0, 1, 2, 3} <= set(lobe.tolist())
+        c = u[2].astype(np.float64) ** (1.0 / (ns.astype(np.float64) + 1.0))
+        d = 2 * ULP / 2
+        sin = np.sqrt(np.maximum(1.0 - c * c, 0.0))
+        dsin = np.maximum(*(np.abs(np.sqrt(np.maximum(1.0 - (c + e) ** 2, 0.0)) - sin) for e in (-d, d)))
+        wi_extra = np.where(lobe == 3, 4 * (dsin + d), 0.0)[:, None]
+        _assert_close(wi, jwi, ns, atol=WI_ATOL, extra=wi_extra, err_msg=f"{msg} wi")
+
+        # f: the mixture's Fx at the port's own wi, where it depends on wi
+        at_wi = (lobe == 2) | (lobe == 3)
+        f_eval = np.asarray(JB.bsdf_fx(jl, jnp.asarray(wo), jnp.asarray(wi)))
+        _assert_close(f, np.where(at_wi[:, None], f_eval, jf), ns, err_msg=f"{msg} f")
+        # pdf: the mixture's pdf at the port's own wi on diffuse lanes; on
+        # glossy lanes JAX's pdf, plus the diffuse term's share (w_d / pi)
+        # of the tolerance on wi_z
+        pdf_eval = np.asarray(JB.bsdf_pdf(jl, jnp.asarray(wo), jnp.asarray(wi)))
+        wiz_tol = WI_ATOL + wi_extra[:, 0] + _lane_rtol(ns, 1) * np.abs(jwi[:, 2])
+        extra = np.where(lobe == 3, np.asarray(jl.w_d) * wiz_tol / np.pi, 0.0)
+        _assert_close(pdf, np.where(lobe == 2, pdf_eval, jpdf), ns, extra=extra, err_msg=f"{msg} pdf")

@@ -130,3 +130,88 @@ def test_stress_render_runs_through_traversal_kernels(stress_cuda):
     assert all(traverse.LAUNCHES[k] > launches[k] for k in launches)
     assert (traverse.PLAIN_CALLS, woop.PLAIN_CALLS, woop.LAUNCHES) == plain
     assert r.stats["nan_scrubbed"] == 0 and float(r.film.accum.mean()) > 0
+
+
+def _treelet_layouts(scene):
+    """The scene's own treelet layout (c = s_b = 128: one superblock at
+    5,986 triangles) and a deep one over the same BVH (c = 16, s_b = 8)."""
+    import dataclasses
+
+    from mcpt_tpu_torch.ops.treelets import build_treelets
+    from mcpt_tpu_torch.scene import _to
+
+    bvh = {k: getattr(scene.bvh, k).cpu().numpy() for k in ("lo", "hi", "first", "count", "skip")}
+    deep = _to(build_treelets(bvh, scene.num_tris, 16, 8), scene.device)
+    return {"own": scene, "deep": dataclasses.replace(scene, treelets=deep)}
+
+
+@pytest.mark.parametrize("layout", ["own", "deep"])
+@pytest.mark.parametrize("n", [1, 129, 70000])
+def test_treelet_kernels_equal_plain_versions_bitwise(stress_cuda, layout, n):
+    """The schedule kernels (v = 512, and v = 64 with blanked rows) and the
+    select kernels against their plain versions on the same sorted tiles."""
+    from mcpt_tpu_torch.ops import schedule as S
+    from mcpt_tpu_torch.ops import select as SL
+    from mcpt_tpu_torch.ops.woop import F32_MAX
+
+    scene = _treelet_layouts(stress_cuda[0])[layout]
+    tl, tris = scene.treelets, scene.trav.tris
+    o, d, t_max = _rays(scene, n, n + 1)
+    o[1::89] = 5.0  # unparked origins on the room's middle planes, along an axis
+    d[1::89] = torch.tensor([0.0, 1.0, 0.0], device="cuda")
+    for closest in (True, False):
+        rays, _ = S.sorted_tiles(scene, o, d, 1e-3, F32_MAX if closest else t_max)
+        kind = "closest" if closest else "any"
+        for v in (512, 64):
+            sched, _, _ = S.build_schedule(tl, rays, v)
+            k = getattr(S, f"{kind}_hit_schedule_kernel")(tl, tris, rays, sched)
+            p = getattr(S, f"{kind}_hit_schedule_plain")(tl, tris, rays, sched)
+            for a, b in zip(k, p) if closest else ((k, p),):
+                assert torch.equal(a, b), (kind, v)
+        k = getattr(SL, f"{kind}_hit_select_kernel")(tl, tris, rays)
+        p = getattr(SL, f"{kind}_hit_select_plain")(tl, tris, rays)
+        for a, b in zip(k, p) if closest else ((k, p),):
+            assert torch.equal(a, b), kind
+
+
+def test_treelet_wrappers_route_by_device(stress_cuda):
+    """A CPU tensor takes the plain walks and launches nothing; a CUDA tensor
+    launches the kernels and never takes a plain walk; both answer alike,
+    and alike the BVH traversal."""
+    from mcpt_tpu_torch.ops import schedule as S
+    from mcpt_tpu_torch.ops import select as SL
+    from mcpt_tpu_torch.ops import traverse
+
+    cuda, cpu = stress_cuda
+    o, d, t_max = _rays(cuda, 3000, 9)
+    out = {}
+    for dev, scene in (("cuda", cuda), ("cpu", cpu)):
+        counts = [(dict(m.LAUNCHES), dict(m.PLAIN_CALLS)) for m in (S, SL)]
+        args = (scene, o.to(dev), d.to(dev), 1e-3)
+        out[dev] = (S.closest_hit_schedule(*args), S.any_hit_schedule(*args, t_max.to(dev)),
+                    SL.closest_hit_select(*args), SL.any_hit_select(*args, t_max.to(dev)))
+        for m, (launches, plain) in zip((S, SL), counts):
+            ran, idle = (m.LAUNCHES, m.PLAIN_CALLS) if dev == "cuda" else (m.PLAIN_CALLS, m.LAUNCHES)
+            assert ran == {k: (launches if dev == "cuda" else plain)[k] + 1 for k in launches}
+            assert idle == (plain if dev == "cuda" else launches)
+    want = (traverse.closest_hit_traverse(cpu.trav, o.cpu(), d.cpu(), 1e-3, traverse.F32_MAX),
+            traverse.any_hit_traverse(cpu.trav, o.cpu(), d.cpu(), 1e-3, t_max.cpu()))
+    for i in range(4):
+        for a, b, w in zip(*(x if isinstance(x, tuple) else (x,) for x in (out["cuda"][i], out["cpu"][i],
+                                                                            want[i % 2]))):
+            assert torch.equal(a.cpu(), b) and torch.equal(b, w)
+
+
+def test_stress_render_runs_through_select_kernels(stress_cuda, monkeypatch):
+    from mcpt_tpu_torch.ops import intersect, select, traverse, woop
+    from mcpt_tpu_torch.render.renderer import RenderConfig, Renderer
+
+    monkeypatch.setattr(intersect, "TREELET_SELECT", "smem")
+    launches = dict(select.LAUNCHES)
+    others = (dict(traverse.LAUNCHES), dict(traverse.PLAIN_CALLS), dict(select.PLAIN_CALLS),
+              dict(woop.LAUNCHES))
+    r = Renderer(stress_cuda[0], RenderConfig(max_bounces=6, width=64, height=48))
+    r.step()
+    assert all(select.LAUNCHES[k] > launches[k] for k in launches)
+    assert (traverse.LAUNCHES, traverse.PLAIN_CALLS, select.PLAIN_CALLS, woop.LAUNCHES) == others
+    assert r.stats["nan_scrubbed"] == 0 and float(r.film.accum.mean()) > 0

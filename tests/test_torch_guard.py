@@ -18,6 +18,20 @@ def _port_files():
     return files + [os.path.join(ROOT, "chip_smoke.py")]
 
 
+def test_scan_covers_the_treelet_modules():
+    """The scan above covers the treelet layout, the schedule and select
+    routes and the loader of csrc/treelet.cu (ops/_build.py), and the loader
+    binds all four of its kernels."""
+    rel = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for name in ("treelets", "schedule", "select", "_build"):
+        assert f"mcpt_tpu_torch/ops/{name}.py" in rel
+    from mcpt_tpu_torch.ops import _build
+
+    assert os.path.join(_build.CSRC_DIR, "treelet.cu") in _build.sources()
+    for kernel in ("schedule_closest", "schedule_any", "select_closest", "select_any"):
+        assert kernel in _build.SIGNATURES
+
+
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, ROOT))
 def test_port_file_imports_no_jax(path):
     with open(path) as f:
@@ -52,6 +66,28 @@ def test_renders_with_jax_blocked():
         "s = load_scene('scenes/cornell-box.obj', device='cpu')\n"
         "r = Renderer(s, RenderConfig(max_bounces=3, width=16, height=16))\n"
         "r.step()\n"
+        "assert r.stats['nan_scrubbed'] == 0 and float(r.film.accum.mean()) > 0\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'mcpt_tpu') and sys.modules[m] is not None]\n"
+        "print('OK', bad)\n"
+    )
+    assert out.strip() == "OK []"
+
+
+def test_select_route_renders_with_jax_blocked():
+    """A 5,986-triangle stress scene (above 4,096: the treelet layout is
+    built) rendered at 16x12 on the CPU through the select route
+    (MCPT_TREELET_SELECT=smem), with jax, jaxlib and mcpt_tpu unimportable."""
+    out = _run(
+        "import os, sys\n"
+        "os.environ['MCPT_TREELET_SELECT'] = 'smem'\n"
+        "for m in ('jax', 'jaxlib', 'mcpt_tpu'): sys.modules[m] = None\n"
+        "import chip_smoke\n"
+        "from mcpt_tpu_torch.ops import select\n"
+        "from mcpt_tpu_torch.render.renderer import Renderer, RenderConfig\n"
+        "(s,) = chip_smoke.stress_scene(6000, 0, ('cpu',))\n"
+        "r = Renderer(s, RenderConfig(max_bounces=2, width=16, height=12))\n"
+        "r.step()\n"
+        "assert s.treelets is not None and select.PLAIN_CALLS['closest'] > 0\n"
         "assert r.stats['nan_scrubbed'] == 0 and float(r.film.accum.mean()) > 0\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'mcpt_tpu') and sys.modules[m] is not None]\n"
         "print('OK', bad)\n"

@@ -27,9 +27,15 @@ def jax_scene_arrays(scene) -> dict:
 
 
 def torch_scene(scene):
+    """The port's scene (on the CPU) from a JAX scene's arrays, its treelet
+    layout carried across when it has one."""
     from mcpt_tpu_torch.scene import scene_from_arrays
 
-    return scene_from_arrays(jax_scene_arrays(scene), device="cpu")
+    d = jax_scene_arrays(scene)
+    if getattr(scene, "treelets", None) is not None:
+        for name in ("sb_box", "blk_box", "tri"):
+            d[f"treelets.{name}"] = np.asarray(getattr(scene.treelets, name))
+    return scene_from_arrays(d, device="cpu")
 
 
 def to_torch(x) -> torch.Tensor:
@@ -41,3 +47,39 @@ def to_torch(x) -> torch.Tensor:
 
 def to_numpy(x) -> np.ndarray:
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def treelet_soup(rng, T, c=16, s_b=8):
+    """A random triangle soup in BVH order (mcpt_tpu's numpy builder) with
+    its treelet layout on both sides: (JAX stand-in scene with .treelets, the
+    port's stand-in with .trav and .treelets from its own build, v0, e1, e2).
+    Small c and s_b give a deep two-level layout at a few thousand
+    triangles (tests/test_treelets.py's choice)."""
+    import types
+
+    from mcpt_tpu.ops.bvh import build_bvh_arrays
+    from mcpt_tpu.ops.treelets import build_treelets as jax_build
+    from mcpt_tpu_torch.ops.traverse import pack_traversal
+    from mcpt_tpu_torch.ops.treelets import build_treelets
+    from mcpt_tpu_torch.scene import FlatBVH, _to
+
+    base = rng.uniform(-5.0, 5.0, (T, 3))
+    e1 = rng.normal(size=(T, 3)) * 0.8
+    e2 = rng.normal(size=(T, 3)) * 0.8
+    nodes, perm = build_bvh_arrays(base, e1, e2, use_native=False)
+    v0, e1, e2 = (x[perm].astype(np.float32) for x in (base, e1, e2))
+    jts = jax_build(v0, e1, e2, nodes, c=c, s_b=s_b)
+    bvh = FlatBVH(**{k: torch.from_numpy(np.asarray(nodes[k])) for k in ("lo", "hi", "first", "count", "skip")})
+    port = types.SimpleNamespace(trav=pack_traversal(bvh, *(torch.from_numpy(x) for x in (v0, e1, e2))),
+                                 treelets=_to(build_treelets(nodes, T, c, s_b), torch.device("cpu")))
+    return types.SimpleNamespace(treelets=jts), port, v0, e1, e2
+
+
+def soup_rays(rng, R, spread=6.0):
+    """Rays from a box around the soup in random directions; the first
+    quarter share one origin (a camera-like bundle)."""
+    o = rng.uniform(-spread, spread, (R, 3)).astype(np.float32)
+    d = rng.normal(size=(R, 3))
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    o[: R // 4] = o[0]
+    return o, d
