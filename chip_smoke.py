@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the mcpt_tpu_torch port once on one CUDA card and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--save-closest-batch PATH]
 
 Phases, each printing its wall seconds:
   1. the device, and the card's name and power limit from nvidia-smi;
@@ -10,14 +10,21 @@ Phases, each printing its wall seconds:
   3. the Woop kernels against their plain torch versions on the card, on
      veach-mis rays at the main path's shapes, with times (CUDA events);
   4. the veach main path: Renderer on veach-mis at 1024x1024, 24 bounces,
-     two passes of 1 spp, counting kernel launches;
+     two passes of 1 spp, counting kernel launches; then the any-hit
+     kernel against its plain version on the pass's first NEE shadow
+     batch, captured on the way, with times;
   5. a small veach render on the card against the same render on the CPU;
   6. bathroom-stress (999,698 triangles) generated in memory, as
-     scenes/generate.py's gen_stress writes it, its BVH built and uploaded;
+     scenes/generate.py's gen_stress writes it, its BVH built and uploaded,
+     its traversal tables (child-pair table included) packed again, timed;
   7. the BVH traversal kernels against their plain versions on the card,
-     on its 1280x720 camera rays and their shadow rays, with times;
+     on its 1280x720 camera rays and their shadow rays, with times; the
+     closest-hit kernel's ordered walk against the skip-link walk;
   8. the bathroom main path: Renderer at 1280x720, 24 bounces, two passes
-     of 1 spp, counting kernel launches;
+     of 1 spp, counting kernel launches; then the closest-hit kernel
+     against its plain version on the pass's third closest-hit batch,
+     captured on the way, with times (saved to PATH with
+     --save-closest-batch, for time_closest_batch.py);
   9. a small render of a 5,986-triangle stress scene on the card against
      the same render on the CPU;
  10. bathroom-stress's treelet layout built again from its BVH, timed;
@@ -59,6 +66,12 @@ H100_FP32_OPS = 67e12  # FP32 peak outside the tensor cores, dense (SXM data she
 H100_BYTES = 3.35e12  # HBM3 bytes per second
 CLOSEST_OPS = 41  # f32 operations per (ray, triangle) test, csrc/woop.cu
 ANY_OPS = 40
+# The any-hit kernel (csrc/woop.cu any_pair) rejects a pair by its interval
+# test with 17 f32 operations: the projection's row 2 (11), |d'_z| >= eps,
+# the sign of N, 2 products and 2 compares. The bound counts those for a
+# pair the pre-test rejects and ANY_OPS for any other, so the earlier and
+# the new time read against one bound.
+ANY_REJECT_OPS = 17
 # bathroom-stress: the scene, its main path and the traversal kernels' check
 STRESS_TRIS = 1_000_000  # gen_stress's target (999,698 triangles come out)
 SMALL_STRESS_TRIS = 6000  # 5,986 triangles, still above the 4,096 of the Woop pair
@@ -145,6 +158,9 @@ def build_kernels():
     info = _build.last_build
     if info:
         print(f"nvcc: {info['cmd']}\n{info['output'].strip()}")
+        for name in ("woop_any_kernel", "traverse_closest_kernel"):
+            for line in _ptxas_usage(info["output"], name):
+                print(f"ptxas {name}: {line}")
     t0 = time.perf_counter()
     path = _build.build_host()
     _build.host_library()
@@ -154,26 +170,61 @@ def build_kernels():
         print(f"g++: {info['cmd']}\n{info['output'].strip()}")
 
 
+def _ptxas_usage(output, name):
+    """The -Xptxas -v lines (registers, shared memory, stack and spills) of
+    every entry function whose mangled name holds `name`."""
+    out, cur = [], None
+    for line in output.splitlines():
+        if "Compiling entry function" in line:
+            cur = line.split("'")[1] if "'" in line else line
+            continue
+        if cur and name in cur and ("Used" in line or "stack frame" in line):
+            out.append(f"{cur[cur.index(name):][:40]}: {line.replace('ptxas info    :', '').strip()}")
+    return out
+
+
+def _capture(mod, attr, which):
+    """Wrap mod.attr so that its `which`-th call keeps its arguments in the
+    returned dict (by reference: the wrappers make fresh tensors a call);
+    the returned function restores the attribute."""
+    orig = getattr(mod, attr)
+    seen, store = [0], {}
+
+    def wrapped(*args):
+        seen[0] += 1
+        if seen[0] == which:
+            store["args"] = args
+        return orig(*args)
+
+    setattr(mod, attr, wrapped)
+    return store, lambda: setattr(mod, attr, orig)
+
+
 def _pairs(ws, rays, mask, first_hit_ends):
     """(ray, real triangle) tests this input needs: tested rays against the
     real triangles of their tiles' live chunks; with `first_hit_ends` a ray
-    stops at its first accept (any-hit)."""
+    stops at its first accept (any-hit). Returns (pairs, operations): each
+    pair counts CLOSEST_OPS, or for any hit ANY_REJECT_OPS where the any-hit
+    kernel's pre-test rejects it (ops/woop.py any_pretest_rejects) and
+    ANY_OPS where it does not."""
     import torch
 
     from mcpt_tpu_torch.ops import woop
 
     ids = torch.nonzero(woop._active(rays))[:, 0]
-    total = 0
+    total = ops = 0
     for r0 in range(0, ids.shape[0], 1 << 15):
         sel = ids[r0:r0 + (1 << 15)]
         ry = rays[sel]
         word = mask[sel // woop.RAY_TILE].to(torch.int64)
         done = torch.zeros(sel.shape[0], dtype=torch.bool, device=rays.device)
+        rej = woop.any_pretest_rejects(ws, ry) if first_hit_ends else None
         for c in range(ws.n_chunks):
             live = ((word >> c) & 1) != 0
             real = max(0, min(ws.chunk, ws.n_tris - c * ws.chunk))
             if not first_hit_ends:
                 total += int(live.sum()) * real
+                ops += int(live.sum()) * real * CLOSEST_OPS
                 continue
             t, u, v, ok = woop._project(ry, ws.tbl, ws.eps_any, c, ws.chunk)
             acc = (ok & (u >= 0) & (u <= 1.0) & (v >= 0) & (u + v <= 1.0)
@@ -181,9 +232,12 @@ def _pairs(ws, rays, mask, first_hit_ends):
             run = live & ~done
             has = acc.any(dim=1)
             first = torch.where(has, acc.int().argmax(dim=1) + 1, real)
-            total += int(torch.where(run, first, 0).sum())
+            tested = (torch.arange(real, device=rays.device)[None, :] < first[:, None]) & run[:, None]
+            cheap = tested & rej[:, c * ws.chunk:c * ws.chunk + real]
+            total += int(tested.sum())
+            ops += int(tested.sum()) * ANY_OPS - int(cheap.sum()) * (ANY_OPS - ANY_REJECT_OPS)
             done |= run & has
-    return total
+    return total, ops
 
 
 @phase("3 kernels vs plain")
@@ -269,13 +323,14 @@ def check_kernels(scene):
     ):
         ms = cuda_time_ms(lambda: kern(ws, ry, m))
         plain_ms = cuda_time_ms(lambda: plain(ws, ry, m), reps=5)
-        pairs = _pairs(ws, ry, m, first_end)
+        pairs, n_ops = _pairs(ws, ry, m, first_end)
         nbytes = ry.shape[0] * (in_bytes + out_bytes) + 4 * (ws.tbl.numel() + ws.eps_any.numel() + m.numel())
-        ops_s = pairs * ops / H100_FP32_OPS
+        ops_s = n_ops / H100_FP32_OPS
         bytes_s = nbytes / H100_BYTES
         bound_ms = 1e3 * max(ops_s, bytes_s)
-        print(f"{name}: {ry.shape[0]} rays, {pairs} live pairs, kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-              f"bound {bound_ms:.4f} ms ({'operations' if ops_s >= bytes_s else 'bytes'})")
+        print(f"{name}: {ry.shape[0]} rays, {pairs} live pairs, {n_ops} f32 operations, kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({'operations' if ops_s >= bytes_s else 'bytes'}; "
+              f"{1e3 * pairs * ops / H100_FP32_OPS:.4f} ms at {ops} a pair)")
         out.append({"name": name, "route": "cuda", "source": "mcpt_tpu_torch/csrc/woop.cu",
                     "replaces": replaces, "launches": 0,
                     "max_abs_err": err if name == "woop_closest" else err_a,
@@ -344,7 +399,37 @@ def drive_main_path(scene, label, width, height, passes, family):
 
 @phase("4 veach main path")
 def main_path(scene):
-    return drive_main_path(scene, "veach", WIDTH, HEIGHT, PASSES, "woop")[0]
+    """Phase 4's render, keeping the arguments of the pass's first NEE
+    shadow batch (its second any-hit launch: the first iteration has no
+    shadow rays yet); then the any-hit kernel against its plain version on
+    that batch (0 rays may differ), with times."""
+    import torch
+
+    from mcpt_tpu_torch.ops import woop
+
+    store, restore = _capture(woop, "any_hit_woop_kernel", 2)
+    try:
+        launches = drive_main_path(scene, "veach", WIDTH, HEIGHT, PASSES, "woop")[0]
+    finally:
+        restore()
+    ws, rays, mask = store["args"]
+    k = woop.any_hit_woop_kernel(ws, rays, mask)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p = woop.any_hit_woop_plain(ws, rays, mask)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    n_diff = int((k != p).sum())
+    ms = cuda_time_ms(lambda: woop.any_hit_woop_kernel(ws, rays, mask))
+    pairs, n_ops = _pairs(ws, rays, mask, True)
+    print(f"woop_any on the main path's first NEE shadow batch: {rays.shape[0]} rays, "
+          f"{int(woop._active(rays).sum())} tested, occluded {float(p.float().mean()):.4f}, {n_diff} rays differ "
+          f"from the plain version; {pairs} live pairs; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms (one run), "
+          f"bound {1e3 * n_ops / H100_FP32_OPS:.4f} ms (operations)")
+    if n_diff:
+        raise AssertionError(f"any-hit kernel differs from its plain version on {n_diff} rays of the main "
+                             "path's shadow batch")
+    return launches
 
 
 @phase("5 small render, card vs CPU")
@@ -528,9 +613,25 @@ def stress_scene(target_tris=STRESS_TRIS, seed=0, devices=("cuda",), verbose=Fal
 
 @phase("6 bathroom-stress in memory")
 def bathroom_scene():
+    import torch
+
+    from mcpt_tpu_torch.ops.traverse import STACK_SIZE, pack_traversal
+
     (scene,) = stress_scene(STRESS_TRIS, 0, ("cuda",), verbose=True)
     if scene.num_tris != 999_698:
         raise AssertionError(f"bathroom-stress has {scene.num_tris} triangles, not 999,698")
+    g = scene.geom
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ts = pack_traversal(scene.bvh, g.v0, g.e1, g.e2)
+    torch.cuda.synchronize()
+    same = all(torch.equal(getattr(ts, k).view(torch.int32), getattr(scene.trav, k).view(torch.int32))
+               for k in ("nodes", "tris", "pairs"))  # bits: a skip of -1 reads as NaN
+    print(f"traversal tables packed in {time.perf_counter() - t0:.3f} s on the card: child-pair table "
+          f"{ts.pairs.shape[0]} rows ({ts.pairs.numel() * 4 / 1e6:.1f} MB), depth {ts.depth} (the kernel's "
+          f"stack holds {64 if ts.depth <= 64 else STACK_SIZE}); the same as the scene's {same}")
+    if not same:
+        raise AssertionError("packing the traversal tables again gave other tables")
     return scene
 
 
@@ -546,13 +647,49 @@ def _traversal_bound(kind, counts, rays, ts):
     return 1e3 * max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes"
 
 
+def _check_ordered(label, ts, rays, kern_out):
+    """The closest-hit kernel's answer on `rays` against its plain version
+    (the ordered walk, 0 rays may differ, t/u/v bitwise) and the skip-link
+    walk (at most ROUTE_DIFF_MAX rays may differ; each printed with both t
+    and ids). Returns the plain answer, the skip-link walk's counts (the
+    bound's) and the plain version's wall ms (one run)."""
+    import torch
+
+    from mcpt_tpu_torch.ops import traverse as tv
+
+    skip, skip_counts, skip_ms = _walk_plain(tv.closest_hit_traverse_plain, ts, rays)
+    p, own, plain_ms = _walk_plain(tv.closest_hit_ordered_plain, ts, rays)
+    n_diff = int((kern_out[1] != p[1]).sum())
+    bitwise = all(torch.equal(a, b) for a, b in zip(kern_out, p))
+    route = torch.nonzero(p[1] != skip[1])[:, 0].tolist()
+    R = rays.shape[0]
+    print(f"traverse_closest ({label}): {R} rays, hits {float((p[1] >= 0).float().mean()):.4f}, {n_diff} rays "
+          f"differ from the plain version (bitwise {bitwise}); ordered walk {own['pair_visits']} child-pair "
+          f"visits ({own['pair_visits'] / R:.2f} a ray), {own['tri_tests']} triangle tests "
+          f"({own['tri_tests'] / R:.2f}), plain {plain_ms:.1f} ms (one run); skip-link walk "
+          f"{skip_counts['node_visits']} node visits ({skip_counts['node_visits'] / R:.2f}), "
+          f"{skip_counts['tri_tests']} triangle tests ({skip_counts['tri_tests'] / R:.2f}), {skip_ms:.1f} ms; "
+          f"{len(route)} rays differ between the two walks")
+    for i in route[:ROUTE_DIFF_MAX + 1]:
+        print(f"  ray {i}: skip-link t {float(skip[0][i])!r} id {int(skip[1][i])}, ordered t "
+              f"{float(p[0][i])!r} id {int(p[1][i])}")
+    if n_diff or not bitwise:
+        raise AssertionError(f"traverse_closest kernel differs from its plain version on {n_diff} rays "
+                             f"(bitwise {bitwise}) of the {label} batch")
+    if len(route) > ROUTE_DIFF_MAX:
+        raise AssertionError(f"the ordered walk differs from the skip-link walk on {len(route)} rays of the "
+                             f"{label} batch (at most {ROUTE_DIFF_MAX} may)")
+    return p, skip_counts, plain_ms
+
+
 @phase("7 traversal kernels vs plain")
 def check_traversal(scene):
     """Each traversal kernel against its plain version on the same sorted
     batch (the main path's order): 0 rays may differ, t/u/v bitwise. Closest
     hit on the scene camera's rays, any hit on shadow rays from their hits to
-    points on the light. Returns the kernels' entries, the two batches
-    (packed, in pixel order) and the plain walks' counts on each."""
+    points on the light; the closest-hit kernel's ordered walk also against
+    the skip-link walk. Returns the kernels' entries, the two batches
+    (packed, in pixel order) and the skip-link walks' counts on each."""
     import torch
 
     from mcpt_tpu_torch.ops import traverse as tv
@@ -587,42 +724,35 @@ def check_traversal(scene):
         rays = batches[kind]
         srt, order = sort(rays)
         kern = getattr(tv, f"{kind}_hit_traverse_kernel")
-        plain = getattr(tv, f"{kind}_hit_traverse_plain")
-        counts = {}
-        t0 = time.perf_counter()
-        p = plain(ts, srt, counts)
-        torch.cuda.synchronize()
-        plain_s = time.perf_counter() - t0
-        walks[kind] = counts
-        k = kern(ts, srt)
-        torch.cuda.synchronize()
         if kind == "closest":
-            n_diff = int((k[1] != p[1]).sum())
-            bitwise = all(torch.equal(a, b) for a, b in zip(k, p))
-            both = (k[1] == p[1]) & (p[1] >= 0)
-            err = max(float((a[both] - b[both]).abs().max()) if both.any() else 0.0
-                      for a, b in ((k[0], p[0]), (k[2], p[2]), (k[3], p[3])))
+            k = kern(ts, srt)
+            torch.cuda.synchronize()
+            p, walks[kind], plain_ms = _check_ordered("camera", ts, srt, k)
+            err = 0.0
             back_t, back_tri = torch.empty_like(p[0]), torch.empty_like(p[1])
             back_t[order], back_tri[order] = p[0], p[1]
             results["closest"] = (back_t, back_tri)
-            share = float((p[1] >= 0).float().mean())
         else:
+            plain = tv.any_hit_traverse_plain
+            p, counts, walk_ms = _walk_plain(plain, ts, srt)
+            walks[kind] = counts
+            k = kern(ts, srt)
+            torch.cuda.synchronize()
             n_diff = int((k != p).sum())
-            bitwise = n_diff == 0
             err = float((k.int() - p.int()).abs().max())
-            share = float(p.float().mean())
-        print(f"traverse_{kind}: {rays.shape[0]} rays, {'hits' if kind == 'closest' else 'occluded'} "
-              f"{share:.4f}, {n_diff} rays differ, bitwise {bitwise}, max abs err {err:.3g}; plain walk "
-              f"{plain_s:.2f} s, {counts['node_visits']} node visits, {counts['tri_tests']} triangle tests")
-        if n_diff or not bitwise:
-            raise AssertionError(f"traverse_{kind} kernel differs from its plain version on {n_diff} rays "
-                                 f"(bitwise {bitwise})")
+            print(f"traverse_any: {rays.shape[0]} rays, occluded {float(p.float().mean()):.4f}, {n_diff} rays "
+                  f"differ; plain walk {walk_ms / 1e3:.2f} s, {counts['node_visits']} node visits, "
+                  f"{counts['tri_tests']} triangle tests")
+            if n_diff:
+                raise AssertionError(f"traverse_any kernel differs from its plain version on {n_diff} rays")
         ms = cuda_time_ms(lambda: kern(ts, srt))
         ms_unsorted = cuda_time_ms(lambda: kern(ts, rays))
-        plain_ms = cuda_time_ms(lambda: plain(ts, srt), reps=3)
-        bound_ms, by = _traversal_bound(kind, counts, srt, ts)
+        if kind == "any":
+            plain_ms = cuda_time_ms(lambda: tv.any_hit_traverse_plain(ts, srt), reps=3)
+        bound_ms, by = _traversal_bound(kind, walks[kind], srt, ts)
         print(f"traverse_{kind}: kernel {ms:.4f} ms sorted, {ms_unsorted:.4f} ms unsorted "
-              f"({ms_unsorted / ms:.2f}x), plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({by})")
+              f"({ms_unsorted / ms:.2f}x), plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({by}; the "
+              f"skip-link walk's visits and tests)")
         out.append({"name": f"traverse_{kind}", "route": "cuda", "source": "mcpt_tpu_torch/csrc/traverse.cu",
                     "replaces": "mcpt_tpu/ops/pallas/traverse.py:" + ("128" if kind == "closest" else "347"),
                     "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -632,7 +762,29 @@ def check_traversal(scene):
 
 @phase("8 bathroom main path")
 def bathroom_main_path(scene):
-    return drive_main_path(scene, "bathroom", BATH_W, BATH_H, BATH_PASSES, "traverse")
+    """Phase 8's render, keeping the arguments of the pass's third
+    closest-hit launch (the rays of its third wavefront iteration); then the
+    closest-hit kernel against its plain version and the skip-link walk on
+    that batch, with times."""
+    from mcpt_tpu_torch.ops import traverse as tv
+
+    store, restore = _capture(tv, "closest_hit_traverse_kernel", 3)
+    try:
+        out = drive_main_path(scene, "bathroom", BATH_W, BATH_H, BATH_PASSES, "traverse")
+    finally:
+        restore()
+    ts, rays = store["args"]
+    if SAVE_CLOSEST_BATCH:
+        import torch
+
+        torch.save(rays.cpu(), SAVE_CLOSEST_BATCH)
+        print(f"saved the third-iteration closest batch to {SAVE_CLOSEST_BATCH}")
+    k = tv.closest_hit_traverse_kernel(ts, rays)
+    _, counts, _ = _check_ordered("main path, third iteration", ts, rays, k)
+    ms = cuda_time_ms(lambda: tv.closest_hit_traverse_kernel(ts, rays))
+    bound_ms, by = _traversal_bound("closest", counts, rays, ts)
+    print(f"traverse_closest (main path, third iteration): kernel {ms:.4f} ms, bound {bound_ms:.4f} ms ({by})")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -905,8 +1057,21 @@ def small_select_reference():
         intersect.TREELET_SELECT = "vote"
 
 
+# With --save-closest-batch PATH, phase 8 saves the rays of the bathroom
+# pass's third closest-hit launch there (for time_closest_batch.py).
+SAVE_CLOSEST_BATCH = None
+
+
 def main() -> int:
     import torch
+
+    global SAVE_CLOSEST_BATCH
+    args = sys.argv[1:]
+    if args[:1] == ["--save-closest-batch"] and len(args) == 2:
+        SAVE_CLOSEST_BATCH = os.path.abspath(args[1])
+    elif args:
+        print("usage: chip_smoke.py [--save-closest-batch PATH]", file=sys.stderr)
+        return 2
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)

@@ -1,4 +1,4 @@
-// Skip-link BVH traversal kernels for Hopper (sm_90a): closest hit and any hit.
+// BVH traversal kernels for Hopper (sm_90a): closest hit and any hit.
 //
 // Replace the TPU kernels _closest_kernel and _any_kernel of
 // mcpt_tpu/ops/pallas/traverse.py (pallas_call sites in
@@ -6,30 +6,47 @@
 // closest (t, tri, u, v), or whether any hit exists, of each ray against the
 // scene's BVH, with the reference accept predicates (src/Triangle.cpp:48-78
 // closest, 83-106 any) and slab test (src/AABB.cpp:25-36, far * 1.001).
+// The TPU kernel cut the BVH into superblocks and 128-triangle treelets and
+// tested whole ray tiles against whole treelets, because its vector unit
+// works on (8, 128) tiles staged in VMEM; a GPU thread follows its own ray,
+// so that layout is not used here. One thread walks one ray; the wrapper
+// (ops/traverse.py) sorts the rays so that a warp's rays are coherent.
+// Triangles are three float4 (v0, e1, e2), read through the read-only
+// cache. There is no shared memory and no __syncthreads().
 //
-// Design. One thread per ray walks the flattened preorder BVH with skip
-// links (ops/bvh.py): box hit of an inner node -> node + 1; box hit of a
-// leaf -> test its <= kLeafSize triangles, then skip; box miss -> skip;
-// -1 ends. The TPU kernel cut the BVH into superblocks and 128-triangle
-// treelets and tested whole ray tiles against whole treelets, because its
-// vector unit works on (8, 128) tiles staged in VMEM; a GPU thread follows
-// its own ray, so that layout is not used. Nodes are two float4 (lo.xyz,
-// first*8 + count; hi.xyz, skip) and triangles three float4 (v0, e1, e2),
-// read through the read-only cache. The wrapper (ops/traverse.py) sorts the
-// rays so that a warp's rays are coherent. There is no shared memory and no
-// __syncthreads(), so a thread leaves as soon as its walk ends.
+// Any hit walks the flattened preorder BVH with skip links (ops/bvh.py):
+// box hit of an inner node -> node + 1; box hit of a leaf -> test its <=
+// kLeafSize triangles, then skip; box miss -> skip; -1 ends. Nodes are two
+// float4 (lo.xyz, first*8 + count; hi.xyz, skip).
+//
+// Closest hit walks the child-pair table (ops/traverse.py TraversalSet.pairs,
+// one 64-byte row per inner node: both children's boxes and refs) near
+// child first. After the root box, each inner row starts its four float4
+// loads together and tests both boxes over [t_lo, min(best_t, t_hi)]; the
+// walk goes to the hit child with the smaller entry t and pushes the other
+// with its entry t onto a per-thread stack. The stack holds at most the
+// tree's depth in inner nodes (TraversalSet.depth); the kernel comes with
+// a stack of 64 entries and one of 128, and the entry point launches the
+// smaller one that holds the tree (pack_traversal refuses a deeper one;
+// the SAH trees of the scenes are about 30 deep). A leaf tests its triangles and
+// keeps the smaller t, or the lower id on an equal t. After a leaf, or a
+// row with no child hit, it pops, dropping without a load every entry whose
+// t no longer lies below min(best_t, t_hi), which is the slab test of that
+// box with the running best_t. So best_t falls early and far subtrees are
+// culled before they are entered.
 //
 // Arithmetic: ray_common.cuh's, single rounded f32 operations in the plain
-// version's order (ops/traverse.py), so the two agree bit for bit.
+// version's order (ops/traverse.py), so each kernel agrees with its plain
+// walk bit for bit (closest_hit_ordered_plain, any_hit_traverse_plain).
 //
-// Loops are bounded: the cursor only moves forward (node + 1, or skip >
-// node), and the walk is capped at n_nodes steps anyway; the leaf loop at
-// kLeafSize.
+// Loops are bounded: the skip-link cursor only moves forward and the
+// ordered walk visits each row and leaf at most once, both capped at
+// n_nodes steps anyway; the leaf loop at kLeafSize.
 //
-// Bound on this card: FP32 arithmetic per node visit (~29 operations) and
-// per triangle test (~56), against 32 bytes of node and 48 of triangle
-// read per visit; the visits are data-dependent and the reads scattered.
-// A wider BVH, an ordered stack and shared-memory staging are later work.
+// Bound on this card: FP32 arithmetic per box test (~29 operations) and
+// per triangle test (~56), against 32 (any) or 64 (closest, two boxes)
+// bytes of node and 48 of triangle read per visit; the visits are
+// data-dependent and the reads scattered.
 
 #include "ray_common.cuh"
 
@@ -37,10 +54,13 @@ namespace {
 
 constexpr int kBlock = 128;   // rays per block (ops/traverse.py RAY_TILE)
 constexpr int kLeafSize = 4;  // ops/bvh.py DEFAULT_LEAF_SIZE
+constexpr int kStackSmall = 64;  // stack entries of the kernel for trees up to 64 deep
+constexpr int kStackMax = 128;   // and of the one for deeper trees (ops/traverse.py STACK_SIZE)
 
-// Slab test of node box (lo = na.xyz, hi = nb.xyz) over [t_lo, t_hi].
+// Slab test of node box (lo = na.xyz, hi = nb.xyz) over [t_lo, t_hi]; tmin
+// is the entry t.
 __device__ __forceinline__ bool slab(const float4 na, const float4 nb, const Ray& r, float t_lo,
-                                     float t_hi) {
+                                     float t_hi, float& tmin) {
   const float tax = __fmul_rn(__fsub_rn(na.x, r.ox), r.ix);
   const float tay = __fmul_rn(__fsub_rn(na.y, r.oy), r.iy);
   const float taz = __fmul_rn(__fsub_rn(na.z, r.oz), r.iz);
@@ -51,9 +71,15 @@ __device__ __forceinline__ bool slab(const float4 na, const float4 nb, const Ray
   const float fx = __fmul_rn(max_nan(tax, tbx), kFarFudge);
   const float fy = __fmul_rn(max_nan(tay, tby), kFarFudge);
   const float fz = __fmul_rn(max_nan(taz, tbz), kFarFudge);
-  const float tmin = max_nan(t_lo, max_nan(max_nan(nx, ny), nz));
+  tmin = max_nan(t_lo, max_nan(max_nan(nx, ny), nz));
   const float tmax = min_nan(t_hi, min_nan(min_nan(fx, fy), fz));
   return tmin < tmax;
+}
+
+__device__ __forceinline__ bool slab(const float4 na, const float4 nb, const Ray& r, float t_lo,
+                                     float t_hi) {
+  float tmin;
+  return slab(na, nb, r, t_lo, t_hi, tmin);
 }
 
 // Moller-Trumbore of triangle `id` (tris rows of three float4: v0, e1, e2).
@@ -62,48 +88,107 @@ __device__ __forceinline__ Tuv mt(const float4* __restrict__ tris, int id, const
   return mt_tri(__ldg(&tris[3 * id]), __ldg(&tris[3 * id + 1]), __ldg(&tris[3 * id + 2]), r, det_eps);
 }
 
+struct Best {
+  float t, u, v;
+  int id;
+};
+
+// The closest-hit walk of one ray: its state and its two kinds of step.
+template <int kStack>
+struct Walk {
+  Ray r;
+  float t_lo, t_hi;
+  Best best;
+  int ref;  // row*8 (inner row), first*8 + count (leaf), or -1 (finished)
+  int sp;
+  int stk_ref[kStack];
+  float stk_t[kStack];
+
+  // Pops the first entry whose entry t still lies below min(best_t, t_hi).
+  __device__ __forceinline__ int pop() {
+    const float th = min_nan(best.t, t_hi);
+    while (sp > 0) {
+      --sp;
+      if (stk_t[sp] < th) return stk_ref[sp];
+    }
+    return -1;
+  }
+
+  __device__ __forceinline__ void inner(const float4* __restrict__ pairs) {
+    const float4* row = pairs + 4 * (ref >> 3);
+    const float4 l0 = __ldg(row), l1 = __ldg(row + 1), r0 = __ldg(row + 2), r1 = __ldg(row + 3);
+    const float th = min_nan(best.t, t_hi);
+    float tl, tr;
+    const bool hl = slab(l0, l1, r, t_lo, th, tl);
+    const bool hr = slab(r0, r1, r, t_lo, th, tr);
+    const int lref = __float_as_int(l0.w), rref = __float_as_int(l1.w);
+    if (hl && hr) {
+      const bool lfirst = tl <= tr;
+      stk_ref[sp] = lfirst ? rref : lref;
+      stk_t[sp] = lfirst ? tr : tl;
+      ++sp;
+      ref = lfirst ? lref : rref;
+    } else if (hl) {
+      ref = lref;
+    } else if (hr) {
+      ref = rref;
+    } else {
+      ref = pop();
+    }
+  }
+
+  __device__ __forceinline__ void leaf(const float4* __restrict__ tris) {
+    const int first = ref >> 3;
+    const int cnt = min(ref & 7, kLeafSize);
+    for (int k = 0; k < cnt; ++k) {
+      const int id = first + k;
+      const Tuv h = mt(tris, id, r, kDetClosest);
+      // t in [t_lo, t_hi), below best_t or equal to it with a lower id
+      if (h.ok && h.t >= t_lo && h.t < t_hi && (h.t < best.t || (h.t == best.t && id < best.id)) &&
+          h.u >= 0.f && h.v >= 0.f && __fsub_rn(__fsub_rn(1.0f, h.u), h.v) >= 0.f) {
+        best.t = h.t;
+        best.u = h.u;
+        best.v = h.v;
+        best.id = id;
+      }
+    }
+    ref = pop();
+  }
+};
+
+template <int kStack>
 __global__ void __launch_bounds__(kBlock)
 traverse_closest_kernel(const float4* __restrict__ rays, const float4* __restrict__ nodes,
-                        const float4* __restrict__ tris, int R, int n_nodes,
-                        float* __restrict__ out_t, int* __restrict__ out_tri,
-                        float* __restrict__ out_u, float* __restrict__ out_v) {
+                        const float4* __restrict__ pairs, const float4* __restrict__ tris, int R,
+                        int root_ref, int max_steps, float* __restrict__ out_t,
+                        int* __restrict__ out_tri, float* __restrict__ out_u,
+                        float* __restrict__ out_v) {
   const int i = blockIdx.x * kBlock + threadIdx.x;
   if (i >= R) return;
   const float4 a = rays[2 * i];      // o.xyz, t_lo
   const float4 b = rays[2 * i + 1];  // d.xyz, t_hi
-  float best_t = FLT_MAX, best_u = 0.f, best_v = 0.f;
-  int best_id = -1;
+  Walk<kStack> w;
+  w.best = Best{FLT_MAX, 0.f, 0.f, -1};
+  w.ref = -1;
+  w.sp = 0;
+  w.t_lo = a.w;
+  w.t_hi = b.w;
   if (tested(a, b)) {
-    const Ray r = make_ray(a, b);
-    int node = 0;
-    for (int step = 0; step < n_nodes && node >= 0; ++step) {
-      const float4 na = __ldg(&nodes[2 * node]);
-      const float4 nb = __ldg(&nodes[2 * node + 1]);
-      const bool hit = slab(na, nb, r, a.w, min_nan(best_t, b.w));
-      const int word = __float_as_int(na.w);
-      const int cnt = min(word & 7, kLeafSize);
-      if (hit && cnt > 0) {
-        const int first = word >> 3;
-        for (int k = 0; k < cnt; ++k) {
-          const Tuv h = mt(tris, first + k, r, kDetClosest);
-          // strict < against the running best: the first of equal t wins
-          if (h.ok && h.t >= a.w && h.t < min_nan(best_t, b.w) && h.u >= 0.f && h.v >= 0.f &&
-              __fsub_rn(__fsub_rn(1.0f, h.u), h.v) >= 0.f) {
-            best_t = h.t;
-            best_id = first + k;
-            best_u = h.u;
-            best_v = h.v;
-          }
-        }
-      }
-      node = (hit && (word & 7) == 0) ? node + 1 : __float_as_int(nb.w);
+    w.r = make_ray(a, b);
+    if (slab(__ldg(&nodes[0]), __ldg(&nodes[1]), w.r, a.w, min_nan(w.best.t, b.w))) w.ref = root_ref;
+  }
+  for (int step = 0; step < max_steps && w.ref >= 0; ++step) {
+    if ((w.ref & 7) == 0) {
+      w.inner(pairs);
+    } else {
+      w.leaf(tris);
     }
   }
-  const bool found = best_id >= 0;
-  out_t[i] = found ? best_t : FLT_MAX;
-  out_tri[i] = best_id;
-  out_u[i] = found ? best_u : 0.f;
-  out_v[i] = found ? best_v : 0.f;
+  const bool found = w.best.id >= 0;
+  out_t[i] = found ? w.best.t : FLT_MAX;
+  out_tri[i] = w.best.id;
+  out_u[i] = found ? w.best.u : 0.f;
+  out_v[i] = found ? w.best.v : 0.f;
 }
 
 __global__ void __launch_bounds__(kBlock)
@@ -146,13 +231,18 @@ traverse_any_kernel(const float4* __restrict__ rays, const float4* __restrict__ 
 extern "C" {
 
 // Each entry point launches on `stream` and returns cudaGetLastError().
-int traverse_closest(const float* rays, const float* nodes, const float* tris, int R,
-                     int n_nodes, float* out_t, int* out_tri, float* out_u, float* out_v,
-                     void* stream) {
+// `depth` is the tree's depth in inner nodes (TraversalSet.depth).
+int traverse_closest(const float* rays, const float* nodes, const float* pairs, const float* tris,
+                     int R, int root_ref, int n_nodes, int depth, float* out_t, int* out_tri,
+                     float* out_u, float* out_v, void* stream) {
+  if (depth > kStackMax) return (int)cudaErrorInvalidValue;
   const int blocks = (R + kBlock - 1) / kBlock;
-  traverse_closest_kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
+  auto kernel = depth <= kStackSmall ? traverse_closest_kernel<kStackSmall>
+                                     : traverse_closest_kernel<kStackMax>;
+  kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
       reinterpret_cast<const float4*>(rays), reinterpret_cast<const float4*>(nodes),
-      reinterpret_cast<const float4*>(tris), R, n_nodes, out_t, out_tri, out_u, out_v);
+      reinterpret_cast<const float4*>(pairs), reinterpret_cast<const float4*>(tris), R, root_ref,
+      n_nodes, out_t, out_tri, out_u, out_v);
   return (int)cudaGetLastError();
 }
 

@@ -7,27 +7,31 @@
 // tile may reach, with the reference accept predicates (src/Triangle.cpp:
 // 48-78 closest, 85-103 any) and the lowest triangle id on equal t.
 //
-// Design. One thread per ray; a block of kTile = 256 rays is one tile of
-// the chunk mask, which the wrapper computes in torch (ops/woop.py,
-// tile_chunk_mask) and which is conservative. For each live chunk the block
-// stages kStage triangles at a time in static shared memory, structure of
-// arrays: the 3x3 W and p of the Woop map (12 floats) plus the determinant
-// threshold, 13 floats a triangle, 13 KB a stage. Every thread then walks
-// the stage in f32, reading each value as a broadcast, and keeps its best
-// (t, id, u, v) in registers. The any-hit thread stops testing after its
-// first accept but still reaches every __syncthreads(); the syncs sit only
-// in code that the whole block runs, and the block leaves early, together,
-// once every ray of it has a hit.
+// Design of the closest-hit kernel. One thread per ray; a block of kTile =
+// 256 rays is one tile of the chunk mask, which the wrapper computes in
+// torch (ops/woop.py, tile_chunk_mask) and which is conservative. For each
+// live chunk the block stages kStage triangles at a time in static shared
+// memory, structure of arrays: the 3x3 W and p of the Woop map (12 floats)
+// plus the determinant threshold, 13 floats a triangle, 13 KB a stage.
+// Every thread then walks the stage in f32, reading each value as a
+// broadcast, and keeps its best (t, id, u, v) in registers. The syncs sit
+// only in code that the whole block runs.
+//
+// The any-hit kernel tests the same pairs with one ray a thread, 64-byte
+// array-of-structures staging of the real triangles only, a
+// division-free pre-test that rejects almost every pair before the exact
+// predicate, and warps that retire once their rays have finished; its
+// comment below derives the pre-test's margins.
 //
 // Arithmetic. The projection o' = W o + p, d' = W d and t, u, v use
 // explicitly rounded operations (__fmul_rn, __fadd_rn, __fdiv_rn), with
 // no fused multiply-add, in the order of the plain torch version in
 // ops/woop.py, so the two agree bit for bit.
 //
-// Bound on this card: FP32 arithmetic, about 34 operations for each
-// (ray, live triangle) pair, against a few dozen bytes of input per ray;
-// shared-memory staging keeps the triangle reads off device memory and the
-// chunk cull cuts the pairs. wgmma, TMA and speed are later work.
+// Bound on this card: FP32 arithmetic, about 40 operations for each
+// (ray, live triangle) pair (chip_smoke.py CLOSEST_OPS, ANY_OPS), against a
+// few dozen bytes of input per ray; shared-memory staging keeps the
+// triangle reads off device memory and the chunk cull cuts the pairs.
 
 #include <cfloat>
 #include <cstdint>
@@ -37,6 +41,7 @@ namespace {
 
 constexpr int kTile = 256;   // rays per block == chunk-mask tile (RAY_TILE)
 constexpr int kStage = 256;  // triangles staged in shared memory at a time
+constexpr int kAnyStage = 128;  // the same for the any-hit kernel, which packs its rays between stages
 
 struct Stage {
   float w[12][kStage];  // W00 W01 W02 p0  W10 W11 W12 p1  W20 W21 W22 p2
@@ -140,44 +145,238 @@ woop_closest_kernel(const float4* __restrict__ rays, const float* __restrict__ t
   }
 }
 
+// ---------------------------------------------------------------------------
+// Any hit: a division-free pre-test in front of the exact predicate.
+//
+// The block is the same 256-ray tile with the same chunk mask, so the pairs
+// tested are the same as before, one ray a thread. A stage holds only
+// real triangles (the last chunk's pad columns, eps = F32_MAX, never accept
+// and are not staged), 64 bytes a triangle, array of structures: W row k
+// and p[k] as one float4 for k = 0, 1, 2, then (eps, flag, 0, 0). A pair
+// reads four float4 broadcasts. Before each stage the block packs its
+// unfinished rays into its first threads (compact), so that a warp whose
+// rays have all finished, occluded or never tested, skips the stage; a
+// warp also leaves a stage once its rays have finished (checked every
+// kUnroll triangles). Every __syncthreads() stays in code that the whole
+// block runs. An occluded ray writes its own result at once.
+//
+// A pair first computes o' = W o + p and d' = W d exactly as project() does
+// (so the floats po0..2, pd0..2 are those of the exact path) and then
+// rejects, without a division, what the exact path cannot accept: by the
+// interval test on t. Only a pair that passes goes through the exact path:
+// __fdiv_rn, t, u, v and the accept predicate, unchanged, so the answer is
+// any_hit_woop_plain's bit for bit. (Two rays a thread, and barycentric
+// tests on u, v and 1 - u - v added to the pre-test, measured slower on
+// this card: PERF.md.)
+//
+// Margins. e = 2^-24 is the unit roundoff; fl() a rounded f32 operation.
+// Every rounding is fl(x) = x(1 + d) + h with |d| <= e, |h| <= 2^-150,
+// d h = 0 (h only below 2^-126); a sum or difference of two floats has
+// h = 0, and rounding keeps its sign. For a float N and a real x, N <
+// fl(x) implies N < x (fl(x) is the float nearest to x), and likewise for
+// >. The pre-test applies to an ordinary pair only: the ray has t_lo >=
+// 2^-100 and |o|, |d| <= 2^24, the triangle's W and p are finite and at
+// most 2^24 (the stage's flag); then |po|, |pd| < 2^50 and no product
+// below overflows. Any other pair goes to the exact path.
+//
+// Let A = |pd2|, s = sign(pd2), N = -s po2 (exact), T = N / A (real), so
+// the exact path's t = fl(N r), r = fl(1/A): a pair with A < eps is
+// rejected by the exact test itself. Suppose the exact path accepts.
+//  * r is finite (else t or u is not finite and the pair is rejected), so
+//    A > 2^-128, 1/A is a normal float's worth and r = (1/A)(1 + d1); t >=
+//    t_lo >= 2^-100 is normal, t = N r (1 + d2); so t = T(1 + th), |th| <=
+//    2.0001e.
+//  * Interval. fl(N r) >= t_lo gives N r >= t_lo (1 - e), so N > 0 and N >=
+//    t_lo A (1 - e) / (1 + e). The test rejects when N < fl(lo_m A), lo_m =
+//    fl(t_lo (1 - 2^-20)), which implies N < t_lo (1 - 2^-20)(1 + e) A, a
+//    contradiction since (1 - 16e)(1 + e)^2 < (1 - e) / (1 + e). Likewise
+//    fl(N r) <= t_hi gives N <= t_hi A (1 + e) / (1 - e), and N > fl(hi_m
+//    A), hi_m = fl(t_hi (1 + 2^-20)), gives N > t_hi (1 + 16e)(1 - e) A,
+//    which is larger. (t_hi (1 + 2^-20) may overflow to inf: no test.)
+// So a pair the pre-test rejects is one the exact predicate rejects.
+// tests/test_torch_woop.py holds a torch mirror of this pre-test
+// (ops/woop.py any_pretest_rejects) against the exact predicate on
+// adversarial rays.
+// ---------------------------------------------------------------------------
+
+constexpr float kOrdMax = 0x1p24f;       // |o|, |d|, |W|, |p| of an ordinary pair
+constexpr float kOrdLo = 0x1p-100f;      // least t_lo of an ordinary ray
+constexpr float kRelMargin = 0x1p-20f;   // of t_lo and t_hi
+constexpr int kUnroll = 4;               // triangles between two warp exit checks
+
+// One staged triangle: W row k and p[k] in w[k]; e = (eps, 1 if the
+// triangle is ordinary else 0, 0, 0).
+struct AnyTri {
+  float4 w[3];
+  float4 e;
+};
+
+struct AnyRay {
+  float ox, oy, oz, dx, dy, dz, lo, hi;
+  float lo_m, hi_m;  // t_lo (1 - 2^-20), t_hi (1 + 2^-20), rounded
+  int idx;           // the ray's index in the batch
+  bool ord;          // an ordinary ray: the pre-test applies
+  bool done;         // not tested, occluded, or no ray
+};
+
+__device__ __forceinline__ AnyRay make_any_ray(float4 a, float4 b, int idx, bool active) {
+  AnyRay y;
+  y.ox = a.x;
+  y.oy = a.y;
+  y.oz = a.z;
+  y.dx = b.x;
+  y.dy = b.y;
+  y.dz = b.z;
+  y.lo = a.w;
+  y.hi = b.w;
+  y.lo_m = __fmul_rn(a.w, 1.0f - kRelMargin);
+  y.hi_m = __fmul_rn(b.w, 1.0f + kRelMargin);
+  y.idx = idx;
+  y.ord = a.w >= kOrdLo && fabsf(a.x) <= kOrdMax && fabsf(a.y) <= kOrdMax &&
+          fabsf(a.z) <= kOrdMax && fabsf(b.x) <= kOrdMax && fabsf(b.y) <= kOrdMax &&
+          fabsf(b.z) <= kOrdMax;
+  y.done = !active;
+  return y;
+}
+
+// Packs the block's unfinished rays, in order, into its first threads, so
+// that a warp left with no ray skips the stages that follow. Returns the
+// number of unfinished rays (the same in every thread). Holds three
+// __syncthreads() (block-uniform), the first of which also orders the last
+// reads of the previous stage before the next stage is written.
+__device__ __forceinline__ int compact(AnyRay& y, float4 (*slot)[3], int* warp_total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int cnt = !y.done;
+  int inc = cnt;  // inclusive scan over the warp
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, inc, o);
+    if (lane >= o) inc += v;
+  }
+  __syncthreads();
+  if (lane == 31) warp_total[warp] = inc;
+  __syncthreads();
+  int pos = inc - cnt, total = 0;
+#pragma unroll
+  for (int w = 0; w < kTile / 32; ++w) {
+    const int t = warp_total[w];
+    pos += w < warp ? t : 0;
+    total += t;
+  }
+  if (!y.done) {
+    slot[pos][0] = make_float4(y.ox, y.oy, y.oz, y.lo);
+    slot[pos][1] = make_float4(y.dx, y.dy, y.dz, y.hi);
+    slot[pos][2] = make_float4(y.lo_m, y.hi_m, __int_as_float(y.idx), y.ord ? 1.f : 0.f);
+  }
+  __syncthreads();
+  const int k = threadIdx.x;
+  y.done = k >= total;
+  if (k < total) {
+    const float4 a = slot[k][0], b = slot[k][1], c = slot[k][2];
+    y.ox = a.x;
+    y.oy = a.y;
+    y.oz = a.z;
+    y.lo = a.w;
+    y.dx = b.x;
+    y.dy = b.y;
+    y.dz = b.z;
+    y.hi = b.w;
+    y.lo_m = c.x;
+    y.hi_m = c.y;
+    y.idx = __float_as_int(c.z);
+    y.ord = c.w != 0.f;
+  }
+  return total;
+}
+
+// Stages triangles t0 .. t0+n-1 of tbl (f32[12, stride]) as AnyTri rows,
+// and fills the stage up to a multiple of kUnroll rows with triangles that
+// never accept (W = 0, p = 0, eps = F32_MAX).
+__device__ __forceinline__ void load_any_stage(AnyTri* s, const float* __restrict__ tbl,
+                                               const float* __restrict__ eps, long long stride,
+                                               long long t0, int n) {
+  const int n_pad = (n + kUnroll - 1) / kUnroll * kUnroll;
+  for (int j = threadIdx.x; j < n_pad; j += kTile) {
+    float v[12];
+    bool ord = true;
+#pragma unroll
+    for (int q = 0; q < 12; ++q) {
+      v[q] = j < n ? tbl[q * stride + t0 + j] : 0.f;
+      ord = ord && fabsf(v[q]) <= kOrdMax;  // false for NaN and inf
+    }
+    s[j].w[0] = make_float4(v[0], v[1], v[2], v[3]);
+    s[j].w[1] = make_float4(v[4], v[5], v[6], v[7]);
+    s[j].w[2] = make_float4(v[8], v[9], v[10], v[11]);
+    s[j].e = make_float4(j < n ? eps[t0 + j] : FLT_MAX, ord ? 1.f : 0.f, 0.f, 0.f);
+  }
+}
+
+// Does ray y hit triangle T? No when `live` is false (the ray has
+// finished). The pre-test above, computed for every pair without a branch;
+// then, only for a pair that passes it, the exact any-hit predicate of the
+// reference (src/Triangle.cpp:85-103) as project() and any_hit_woop_plain
+// compute it.
+__device__ __forceinline__ bool any_pair(const AnyTri& T, const AnyRay& y, bool live) {
+  float po[3], pd[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float4 w = T.w[k];
+    po[k] = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(y.ox, w.x), __fmul_rn(y.oy, w.y)),
+                                __fmul_rn(y.oz, w.z)),
+                      w.w);
+    pd[k] = __fadd_rn(__fadd_rn(__fmul_rn(y.dx, w.x), __fmul_rn(y.dy, w.y)), __fmul_rn(y.dz, w.z));
+  }
+  const float A = fabsf(pd[2]);
+  const float N = pd[2] < 0.f ? po[2] : -po[2];
+  // bitwise |: both tests are computed, neither is a branch
+  const bool out = (N < __fmul_rn(y.lo_m, A)) | (N > __fmul_rn(y.hi_m, A));
+  // |d'_z| >= eps is the exact path's own test
+  if (!(live & (A >= T.e.x) & !(y.ord & (T.e.y != 0.f) & out))) return false;
+  const float inv = __fdiv_rn(1.0f, pd[2]);
+  const float t = __fmul_rn(-po[2], inv);
+  const float u = __fadd_rn(po[0], __fmul_rn(t, pd[0]));
+  const float v = __fadd_rn(po[1], __fmul_rn(t, pd[1]));
+  return u >= 0.f && u <= 1.0f && v >= 0.f && __fadd_rn(u, v) <= 1.0f && t >= y.lo && t <= y.hi;
+}
+
 __global__ void __launch_bounds__(kTile)
 woop_any_kernel(const float4* __restrict__ rays, const float* __restrict__ tbl,
                 const float* __restrict__ eps, const uint32_t* __restrict__ mask, int R,
-                int n_chunks, int chunk, bool* __restrict__ out_hit) {
-  __shared__ Stage s;
+                int n_chunks, int chunk, int n_tris, bool* __restrict__ out_hit) {
+  __shared__ AnyTri s[kAnyStage];
+  __shared__ float4 slot[kTile][3];
+  __shared__ int warp_total[kTile / 32];
   const int r = blockIdx.x * kTile + threadIdx.x;
   float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = make_float4(0.f, 0.f, 0.f, 0.f);
   if (r < R) {
-    a = rays[2 * r];
-    b = rays[2 * r + 1];
+    a = rays[2 * r];      // o.xyz, t_lo
+    b = rays[2 * r + 1];  // d.xyz, t_hi
+    out_hit[r] = false;   // an occluded ray sets its own, below
   }
-  const bool active = tested(r, R, a, b);
-  bool hit = false;
+  AnyRay y = make_any_ray(a, b, r, tested(r, R, a, b));
   const uint32_t live = mask[blockIdx.x];
   const long long stride = (long long)n_chunks * chunk;
   for (int c = 0; c < n_chunks; ++c) {
     if (!((live >> c) & 1u)) continue;  // uniform across the block
-    for (int j0 = 0; j0 < chunk; j0 += kStage) {
-      // every thread reaches this sync; the block leaves together once all
-      // of its rays have a hit
-      if (!__syncthreads_or(active && !hit)) goto done;
-      const int n = min(kStage, chunk - j0);
-      load_stage(s, tbl, eps, stride, (long long)c * chunk + j0, n);
+    const int real = min(chunk, n_tris - c * chunk);  // pad columns are not staged
+    for (int j0 = 0; j0 < real; j0 += kAnyStage) {
+      // block-uniform: the block leaves once all of its rays have finished
+      if (compact(y, slot, warp_total) == 0) return;
+      const int n = min(kAnyStage, real - j0);
+      load_any_stage(s, tbl, eps, stride, (long long)c * chunk + j0, n);
       __syncthreads();
-      if (active && !hit) {
-        for (int j = 0; j < n; ++j) {
-          const Tuv h = project(s, j, a.x, a.y, a.z, b.x, b.y, b.z);
-          if (h.ok && h.u >= 0.f && h.u <= 1.0f && h.v >= 0.f && __fadd_rn(h.u, h.v) <= 1.0f &&
-              h.t >= a.w && h.t <= b.w) {
-            hit = true;
-            break;
+      // warp-uniform: a warp whose rays have all finished skips the stage
+      for (int j = 0; j < n && __any_sync(0xffffffffu, !y.done); j += kUnroll) {
+#pragma unroll
+        for (int k = 0; k < kUnroll; ++k) {
+          if (any_pair(s[j + k], y, !y.done)) {
+            out_hit[y.idx] = true;
+            y.done = true;
           }
         }
       }
     }
   }
-done:
-  if (r < R) out_hit[r] = hit;
 }
 
 }  // namespace
@@ -197,11 +396,11 @@ int woop_closest(const float* rays, const float* tbl, const float* eps, const in
 }
 
 int woop_any(const float* rays, const float* tbl, const float* eps, const int* mask, int R,
-             int n_chunks, int chunk, bool* out_hit, void* stream) {
+             int n_chunks, int chunk, int n_tris, bool* out_hit, void* stream) {
   const int blocks = (R + kTile - 1) / kTile;
   woop_any_kernel<<<blocks, kTile, 0, (cudaStream_t)stream>>>(
       reinterpret_cast<const float4*>(rays), tbl, eps,
-      reinterpret_cast<const uint32_t*>(mask), R, n_chunks, chunk, out_hit);
+      reinterpret_cast<const uint32_t*>(mask), R, n_chunks, chunk, n_tris, out_hit);
   return (int)cudaGetLastError();
 }
 

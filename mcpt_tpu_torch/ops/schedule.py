@@ -389,7 +389,11 @@ def _schedule(scene, org, dirn, t_min, t_max, v, closest):
         inc = incomplete.repeat_interleave(RAY_TILE)
         fb = rays.clone()
         fb[:, 7] = torch.where(inc, rays[:, 7], 0.0)
-        trav = getattr(tv, f"{kind}_hit_traverse_{'kernel' if rays.is_cuda else 'plain'}")(scene.trav, fb)
+        if rays.is_cuda:
+            fallback = tv.closest_hit_traverse_kernel if closest else tv.any_hit_traverse_kernel
+        else:
+            fallback = tv.closest_hit_ordered_plain if closest else tv.any_hit_traverse_plain
+        trav = fallback(scene.trav, fb)
         out = (tuple(torch.where(inc, a, b) for a, b in zip(trav, out)) if closest
                else torch.where(inc, trav, out))
     return scatter_back(out, order, R)

@@ -246,6 +246,34 @@ def any_hit_woop_plain(ws: WoopSet, rays: torch.Tensor, mask: torch.Tensor):
     return out
 
 
+# The any-hit kernel's division-free pre-test (csrc/woop.cu, whose comment
+# derives its margins): it applies to ordinary pairs only.
+ORD_MAX = 2.0**24  # |o|, |d|, |W|, |p| of an ordinary pair
+ORD_LO = 2.0**-100  # least t_lo of an ordinary ray
+REL_MARGIN = 2.0**-20  # of t_lo and t_hi
+
+
+def any_pretest_rejects(ws: WoopSet, rays: torch.Tensor) -> torch.Tensor:
+    """bool[R, Tp]: the pairs that csrc/woop.cu's any-hit kernel rejects
+    before its exact predicate by its interval test, operation for operation
+    (each f32 operation rounded once, in the kernel's order). The kernel's
+    own |d'_z| >= eps test is not part of it. Every pair rejected here must be one that the exact
+    predicate (any_hit_woop_plain) rejects; the tests hold it to that."""
+    w = ws.tbl
+    o, d = rays[:, 0:3], rays[:, 4:7]
+    lo, hi = rays[:, 3:4], rays[:, 7:8]
+    po = [o[:, 0:1] * w[4 * k] + o[:, 1:2] * w[4 * k + 1] + o[:, 2:3] * w[4 * k + 2] + w[4 * k + 3]
+          for k in range(3)]
+    pd = [d[:, 0:1] * w[4 * k] + d[:, 1:2] * w[4 * k + 1] + d[:, 2:3] * w[4 * k + 2] for k in range(3)]
+    a = torch.abs(pd[2])
+    n = torch.where(pd[2] < 0, po[2], -po[2])
+    out = (n < (lo * (1.0 - REL_MARGIN)) * a) | (n > (hi * (1.0 + REL_MARGIN)) * a)
+    ray_ord = ((lo[:, 0] >= ORD_LO) & (torch.abs(o) <= ORD_MAX).all(dim=1)
+               & (torch.abs(d) <= ORD_MAX).all(dim=1))
+    tri_ord = (torch.abs(w) <= ORD_MAX).all(dim=0)
+    return out & ray_ord[:, None] & tri_ord[None, :]
+
+
 def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(x.data_ptr())
 
@@ -297,7 +325,7 @@ def any_hit_woop_kernel(ws: WoopSet, rays: torch.Tensor, mask: torch.Tensor):
     stream = torch.cuda.current_stream(rays.device).cuda_stream
     check(library().woop_any(
         _ptr(rays), _ptr(ws.tbl), _ptr(ws.eps_any), _ptr(mask), R, ws.n_chunks, ws.chunk,
-        _ptr(out), ctypes.c_void_p(stream)), "woop_any")
+        ws.n_tris, _ptr(out), ctypes.c_void_p(stream)), "woop_any")
     LAUNCHES["any"] += 1
     return out
 

@@ -47,7 +47,7 @@ def _rays(scene, n, seed):
     return o, d, t_max
 
 
-@pytest.mark.parametrize("n", [1, 255, 257, 70000])
+@pytest.mark.parametrize("n", [0, 1, 255, 257, 70000])
 def test_kernels_equal_plain_versions_bitwise(veach_cuda, n):
     from mcpt_tpu_torch.ops import woop
 
@@ -64,6 +64,27 @@ def test_kernels_equal_plain_versions_bitwise(veach_cuda, n):
     assert torch.equal(woop.any_hit_woop_kernel(ws, rays_a, mask_a), woop.any_hit_woop_plain(ws, rays_a, mask_a))
 
 
+@pytest.mark.parametrize("n", [0, 1, 255, 257, 70000])
+def test_any_kernel_equals_plain_version_bitwise(veach_cuda, n):
+    """The any-hit kernel on random rays and on shadow rays that end just
+    short of (or exactly at) a hit, t_lo = 0 on some (rays the pre-test
+    leaves to the exact predicate)."""
+    from mcpt_tpu_torch.ops import woop
+
+    ws = veach_cuda.woop
+    o, d, t_max = _rays(veach_cuda, n, n + 3)
+    rc = woop.pack_rays(o, d, 1e-3, woop.F32_MAX)
+    t, tri, _, _ = woop.closest_hit_woop_plain(ws, rc, woop.tile_chunk_mask(rc, ws.boxes))
+    k = torch.arange(n, device="cuda")
+    t_max = torch.where(tri >= 0, torch.where(k % 2 == 0, t, t * 0.999), t_max)
+    t_min = torch.where(k % 5 == 0, 0.0, 1e-3)
+    rays = woop.pack_rays(o, d, t_min, t_max)
+    mask = woop.tile_chunk_mask(rays, ws.boxes)
+    launches = woop.LAUNCHES["any"]
+    assert torch.equal(woop.any_hit_woop_kernel(ws, rays, mask), woop.any_hit_woop_plain(ws, rays, mask))
+    assert woop.LAUNCHES["any"] == launches + (n > 0)
+
+
 def test_render_runs_through_kernels(veach_cuda):
     from mcpt_tpu_torch.ops import woop
     from mcpt_tpu_torch.render.renderer import RenderConfig, Renderer
@@ -76,8 +97,10 @@ def test_render_runs_through_kernels(veach_cuda):
     assert r.stats["nan_scrubbed"] == 0 and float(r.film.accum.mean()) > 0
 
 
-@pytest.mark.parametrize("n", [1, 127, 129, 70000])
+@pytest.mark.parametrize("n", [0, 1, 127, 129, 70000])
 def test_traversal_kernels_equal_plain_versions_bitwise(stress_cuda, n):
+    """Closest hit (the ordered walk) against closest_hit_ordered_plain, any
+    hit against the skip-link walk."""
     from mcpt_tpu_torch.ops import traverse
     from mcpt_tpu_torch.ops.woop import F32_MAX, pack_rays
 
@@ -88,11 +111,40 @@ def test_traversal_kernels_equal_plain_versions_bitwise(stress_cuda, n):
     d[1::89] = torch.tensor([0.0, 1.0, 0.0], device="cuda")
     rays_c = pack_rays(o, d, 1e-3, F32_MAX)
     k = traverse.closest_hit_traverse_kernel(ts, rays_c)
-    p = traverse.closest_hit_traverse_plain(ts, rays_c)
+    p = traverse.closest_hit_ordered_plain(ts, rays_c)
     for a, b in zip(k, p):
         assert torch.equal(a, b)
     rays_a = pack_rays(o, d, 1e-3, t_max)
     assert torch.equal(traverse.any_hit_traverse_kernel(ts, rays_a), traverse.any_hit_traverse_plain(ts, rays_a))
+
+
+@pytest.mark.parametrize("D", [64, 100, 128])
+def test_closest_kernel_on_deep_trees_equals_plain_version_bitwise(D):
+    """The closest-hit kernel with its 64-entry stack (D = 64) and with its
+    128-entry stack (deeper trees, whose walks here fill more than 64
+    entries) against closest_hit_ordered_plain."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
+    import sys
+
+    import numpy as np
+
+    from mcpt_tpu_torch.ops import traverse
+    from mcpt_tpu_torch.ops.woop import F32_MAX, pack_rays
+
+    # by path: a site-wide package named `tests` may shadow this directory
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    try:
+        from torch_parity import deep_chain
+    finally:
+        sys.path.pop(0)
+    ts, o, d = deep_chain(D, np.random.default_rng(D), device="cuda")
+    rays = pack_rays(torch.from_numpy(o).cuda(), torch.from_numpy(d).cuda(), 1e-3, F32_MAX)
+    k = traverse.closest_hit_traverse_kernel(ts, rays)
+    p = traverse.closest_hit_ordered_plain(ts, rays)
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    assert bool((p[1] >= 0).any())
 
 
 def test_traversal_wrappers_route_by_device(stress_cuda):

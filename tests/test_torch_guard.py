@@ -1,5 +1,5 @@
 """The port must run where JAX is absent: nothing under mcpt_tpu_torch/,
-and not chip_smoke.py, imports jax, jaxlib or mcpt_tpu, and importing the
+and not chip_smoke.py or time_closest_batch.py, imports jax, jaxlib or mcpt_tpu, and importing the
 package builds no kernel."""
 import ast
 import glob
@@ -15,7 +15,7 @@ FORBIDDEN = {"jax", "jaxlib", "mcpt_tpu"}
 
 def _port_files():
     files = sorted(glob.glob(os.path.join(ROOT, "mcpt_tpu_torch", "**", "*.py"), recursive=True))
-    return files + [os.path.join(ROOT, "chip_smoke.py")]
+    return files + [os.path.join(ROOT, f) for f in ("chip_smoke.py", "time_closest_batch.py")]
 
 
 def test_scan_covers_the_treelet_modules():

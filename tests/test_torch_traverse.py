@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_parity import to_numpy, to_torch, torch_scene
+from tests.torch_parity import deep_chain, to_numpy, to_torch, torch_scene
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F32_MAX = float(np.finfo(np.float32).max)
@@ -191,7 +191,8 @@ def test_ray_sort_order_matches_jax(stress, rng):
 
 
 def test_wrappers_sort_and_take_the_plain_walk_on_cpu(stress, rng):
-    """On CPU tensors the wrappers run the plain walk (once a call, no
+    """On CPU tensors the wrappers run the kernels' plain walks (the ordered
+    walk for closest hit, the skip-link walk for any hit; once a call, no
     launch); sorting and scattering back changes no output."""
     from mcpt_tpu_torch.ops import traverse as tv
 
@@ -200,7 +201,7 @@ def test_wrappers_sort_and_take_the_plain_walk_on_cpu(stress, rng):
     t_min, t_max = 1e-4 * js.scale, (js.scale * rng.uniform(0, 0.4, 700)).astype(np.float32)
     plain, launches = dict(tv.PLAIN_CALLS), dict(tv.LAUNCHES)
     got = tv.closest_hit_traverse(ts.trav, torch.from_numpy(o), torch.from_numpy(d), t_min, F32_MAX)
-    want = tv.closest_hit_traverse_plain(ts.trav, _pack(o, d, t_min, F32_MAX))
+    want = tv.closest_hit_ordered_plain(ts.trav, _pack(o, d, t_min, F32_MAX))
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     ga = tv.any_hit_traverse(ts.trav, torch.from_numpy(o), torch.from_numpy(d), t_min, torch.from_numpy(t_max))
@@ -346,3 +347,170 @@ def test_render_matches_jax(stress):
     assert close >= 0.99, f"only {close:.4f} of components close"
     np.testing.assert_allclose(b.mean(axis=(0, 1)), a.mean(axis=(0, 1)), rtol=2e-3)
     assert tr.stats["traced_rays"] == pytest.approx(jr.stats["traced_rays"], rel=1e-3)
+
+
+ORDERED_SEEDS = [20, 21]
+
+
+def _bvh_depths(bvh):
+    """Depth (inner nodes above) of every node of a FlatBVH, walked in preorder."""
+    count, skip = (to_numpy(getattr(bvh, k)) for k in ("count", "skip"))
+    depth = np.zeros(count.shape[0], np.int64)
+    for n in range(count.shape[0]):
+        if count[n] == 0:
+            depth[n + 1] = depth[skip[n + 1]] = depth[n] + 1
+    return depth
+
+
+def _chain_bvh(D):
+    """A FlatBVH whose inner nodes form a chain D deep (each inner node's
+    left child a one-triangle leaf), and its D + 1 triangles."""
+    from mcpt_tpu_torch.scene import FlatBVH
+
+    N = 2 * D + 1
+    count = np.zeros(N, np.int32)
+    first = np.zeros(N, np.int32)
+    skip = np.full(N, -1, np.int32)
+    leaves = [2 * k + 1 for k in range(D)] + [2 * D]
+    for i, n in enumerate(leaves):
+        count[n], first[n] = 1, i
+    for k in range(D):
+        skip[2 * k + 1] = 2 * k + 2  # a left leaf skips to its sibling
+    lo = np.tile(np.float32([0, 0, 0]), (N, 1))
+    hi = np.tile(np.float32([1, 1, 1]), (N, 1))
+    bvh = FlatBVH(**{k: torch.from_numpy(x) for k, x in
+                     (("lo", lo), ("hi", hi), ("first", first), ("count", count), ("skip", skip))})
+    tri = torch.tensor([[0.0, 0.0, 0.5]]).repeat(D + 1, 1)
+    return bvh, tri, torch.tensor([[1.0, 0.0, 0.0]]).repeat(D + 1, 1), torch.tensor([[0.0, 1.0, 0.0]]).repeat(D + 1, 1)
+
+
+@pytest.mark.parametrize("which", ["stress", "soup"])
+def test_child_pair_table(stress, which):
+    """Every row of the child-pair table holds the boxes of inner node n's
+    children n+1 and skip[n+1] bit for bit, and their refs; walking the refs
+    from the root reaches every leaf of the BVH once; depth is the most inner
+    nodes above a leaf. A chain deeper than STACK_SIZE raises ValueError,
+    one of STACK_SIZE does not."""
+    from mcpt_tpu_torch.ops import traverse as tv
+
+    cases = []
+    if which == "stress":
+        cases.append((stress[1].bvh, stress[1].trav))
+    else:
+        for seed in ORDERED_SEEDS:
+            ts = _trav_of(*np.random.default_rng(seed).uniform(-1, 1, (3, 300, 3)))
+            cases.append((None, ts))
+    for bvh, ts in cases:
+        nodes = to_numpy(ts.nodes)
+        count = nodes[:, 3].view(np.int32) & 7
+        skip = nodes[:, 7].view(np.int32)
+        inner = np.nonzero(count == 0)[0]
+        pairs = to_numpy(ts.pairs)
+        assert pairs.shape == (inner.shape[0], 16)
+        row_of = {int(n): r for r, n in enumerate(inner)}
+        word = nodes[:, 3].view(np.int32)
+
+        def ref(c):
+            return row_of[c] * 8 if count[c] == 0 else int(word[c])
+
+        for r, n in enumerate(inner):
+            left, right = n + 1, skip[n + 1]
+            np.testing.assert_array_equal(pairs[r, 0:3], nodes[left, 0:3])
+            np.testing.assert_array_equal(pairs[r, 4:7], nodes[left, 4:7])
+            np.testing.assert_array_equal(pairs[r, 8:11], nodes[right, 0:3])
+            np.testing.assert_array_equal(pairs[r, 12:15], nodes[right, 4:7])
+            assert pairs[r, 3:4].view(np.int32)[0] == ref(left)
+            assert pairs[r, 7:8].view(np.int32)[0] == ref(right)
+        assert ts.root_ref == ref(0)
+        seen, todo = [], [ts.root_ref]
+        while todo:
+            x = todo.pop()
+            if x & 7:
+                seen.append(x)
+            else:
+                todo += [int(v) for v in pairs[x >> 3, [3, 7]].view(np.int32)]
+        assert sorted(seen) == sorted(int(w) for w in word[count > 0])
+        if bvh is not None:
+            np.testing.assert_array_equal(nodes[:, 0:3], to_numpy(bvh.lo))
+            assert ts.depth == int(_bvh_depths(bvh)[to_numpy(bvh.count) > 0].max())
+    assert tv.pack_traversal(*_chain_bvh(tv.STACK_SIZE)).depth == tv.STACK_SIZE
+    with pytest.raises(ValueError, match="deeper"):
+        tv.pack_traversal(*_chain_bvh(tv.STACK_SIZE + 1))
+
+
+@pytest.mark.parametrize("seed", ORDERED_SEEDS)
+def test_ordered_closest_matches_jax_bvh_walk(stress, seed):
+    """The ordered walk (closest_hit_ordered_plain) against mcpt_tpu's
+    closest_hit_bvh, box-face rays included, at
+    test_plain_closest_matches_jax_bvh_walk's tolerances."""
+    from mcpt_tpu.ops.traverse import closest_hit_bvh
+    from mcpt_tpu_torch.ops.traverse import closest_hit_ordered_plain
+
+    js, ts = stress
+    o, d = _rays(js, np.random.default_rng(seed), 2048)
+    t_min = 1e-4 * js.scale
+    ref = closest_hit_bvh(js, jnp.asarray(o), jnp.asarray(d), t_min=t_min)
+    counts = {}
+    t, tri, u, v = closest_hit_ordered_plain(ts.trav, _pack(o, d, t_min, F32_MAX), counts)
+    rtri, rt = np.asarray(ref.tri), np.asarray(ref.t)
+    same = to_numpy(tri) == rtri
+    assert same.mean() >= 0.999, (~same).sum()
+    sel = same & (rtri >= 0)
+    assert 0.5 < sel.mean() < 1.0
+    np.testing.assert_allclose(to_numpy(t)[sel], rt[sel], rtol=1e-6, atol=1e-6 * js.scale)
+    assert (to_numpy(u)[sel] >= -1e-6).all() and (to_numpy(v)[sel] >= -1e-6).all()
+    miss = to_numpy(tri) < 0
+    assert (to_numpy(t)[miss] == F32_MAX).all() and (to_numpy(u)[miss] == 0).all()
+    assert counts["pair_visits"] > 2048 and counts["tri_tests"] > 0
+
+
+@pytest.mark.parametrize("which", ["stress", "soup"])
+def test_ordered_walk_against_skip_link_walk(stress, which):
+    """The two closest-hit walks over one BVH: the same triangle except on a
+    tie, where each differing ray's two t lie within one ulp of each other;
+    where the ids agree, t, u and v are bit for bit the same. The ordered
+    walk visits fewer inner rows than the skip-link walk visits nodes."""
+    from mcpt_tpu_torch.ops import traverse as tv
+
+    for seed in ORDERED_SEEDS:
+        rng = np.random.default_rng(seed)
+        if which == "stress":
+            js, port = stress
+            ts = port.trav
+            o, d = _rays(js, rng, 2048)
+            t_min = 1e-4 * js.scale
+        else:
+            ts = _trav_of(*rng.uniform(-1, 1, (3, 400, 3)))
+            o = rng.uniform(-1.5, 1.5, (2048, 3)).astype(np.float32)
+            d = rng.normal(size=(2048, 3))
+            d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+            t_min = 1e-4
+        rays = _pack(o, d, t_min, F32_MAX)
+        c_skip, c_ord = {}, {}
+        a = tv.closest_hit_traverse_plain(ts, rays, c_skip)
+        b = tv.closest_hit_ordered_plain(ts, rays, c_ord)
+        same = a[1] == b[1]
+        for x, y in zip(a, b):
+            assert torch.equal(x[same], y[same])
+        ta, tb = to_numpy(a[0])[~to_numpy(same)], to_numpy(b[0])[~to_numpy(same)]
+        assert (np.abs(ta - tb) <= np.spacing(np.maximum(np.abs(ta), np.abs(tb)))).all(), (ta, tb)
+        assert int((~same).sum()) <= 16
+        assert 0 < c_ord["pair_visits"] < c_skip["node_visits"]
+
+
+@pytest.mark.parametrize("D", [64, 100, 128])
+def test_ordered_walk_on_deep_trees(D):
+    """Chains up to STACK_SIZE deep (tests/torch_parity.deep_chain), whose
+    walks fill stacks beyond 64 entries: pack_traversal takes them, and the
+    ordered walk gives the skip-link walk's (t, tri, u, v) bit for bit (no
+    ties and no box-face hits here)."""
+    from mcpt_tpu_torch.ops import traverse as tv
+
+    ts, o, d = deep_chain(D, np.random.default_rng(D))
+    assert ts.depth == D <= tv.STACK_SIZE
+    rays = _pack(o, d, 1e-3, F32_MAX)
+    a = tv.closest_hit_traverse_plain(ts, rays)
+    b = tv.closest_hit_ordered_plain(ts, rays)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert 0.2 < float((b[1] >= 0).float().mean()) < 0.8

@@ -252,3 +252,105 @@ def test_kernel_wrappers_take_only_cuda_tensors(veach_scene):
         with pytest.raises(ValueError, match="CUDA"):
             fn(ws, rays, mask)
     assert woop.LAUNCHES == launches
+
+
+PRETEST_SEEDS = [21, 22, 23, 24]
+
+
+def _exact_any(ws, rays):
+    """(accept, t) [R, Tp] of the exact any-hit predicate of every pair, as
+    any_hit_woop_plain computes it (no chunk mask)."""
+    from mcpt_tpu_torch.ops import woop
+
+    acc, ts = [], []
+    for c in range(ws.n_chunks):
+        t, u, v, ok = woop._project(rays, ws.tbl, ws.eps_any, c, ws.chunk)
+        acc.append(ok & (u >= 0) & (u <= 1.0) & (v >= 0) & (u + v <= 1.0) & (t >= rays[:, 3:4])
+                   & (t <= rays[:, 7:8]))
+        ts.append(t)
+    return torch.cat(acc, dim=1), torch.cat(ts, dim=1)
+
+
+def _adversarial_rays(rng, ws, v0, e1, e2, R):
+    """Rays aimed at a vertex, an edge point or an interior point of a random
+    triangle; a quarter of them graze its plane with |d'_z| within a few
+    ulps of eps (|n . d| at 1e-6); t_lo and t_hi around the hit, or set to
+    the exact path's own t of the aimed pair, so that t == t_lo or t ==
+    t_hi."""
+    from mcpt_tpu_torch.ops.woop import pack_rays
+
+    T = v0.shape[0]
+    tri = rng.integers(0, T, R)
+    kind = rng.integers(0, 3, R)
+    a, b = rng.random(R), rng.random(R)
+    corner = rng.integers(0, 3, R)
+    uv_vertex = np.array([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0]])[corner]
+    uv_edge = np.stack([np.where(corner == 0, a, np.where(corner == 1, 0.0, a)),
+                        np.where(corner == 0, 0.0, np.where(corner == 1, a, 1.0 - a))], axis=1)
+    uv_in = np.stack([a * (1 - b), a * b], axis=1)
+    uv = np.where((kind == 0)[:, None], uv_vertex, np.where((kind == 1)[:, None], uv_edge, uv_in))
+    p0, f1, f2 = (x[tri].astype(np.float64) for x in (v0, e1, e2))
+    target = p0 + uv[:, 0:1] * f1 + uv[:, 1:2] * f2
+    n = np.cross(f1, f2)
+    nn = np.linalg.norm(n, axis=1, keepdims=True)
+    d = rng.normal(size=(R, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    graze = rng.random(R) < 0.25
+    inplane = d - (d * n).sum(1, keepdims=True) * n / nn**2
+    inplane /= np.linalg.norm(inplane, axis=1, keepdims=True)
+    beta = 1e-6 / nn[:, 0] * (1.0 + rng.integers(-8, 9, R) * 2.0**-22)
+    d = np.where(graze[:, None], inplane + beta[:, None] * n / nn, d)
+    extent = np.abs(np.concatenate([v0, v0 + e1, v0 + e2])).max()
+    dist = extent * 10.0 ** rng.uniform(-3, 0.5, R)
+    o = (target - d * dist[:, None]).astype(np.float32)
+    d = d.astype(np.float32)
+    lo = np.full(R, 1e-4 * extent, np.float32)
+    hi = (dist * np.where(rng.random(R) < 0.5, 1.01, 1 - 1e-3)).astype(np.float32)
+    rays = pack_rays(torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(lo), torch.from_numpy(hi))
+    # the exact path's t of the aimed pair becomes t_lo or t_hi of half of them
+    t_aim = _exact_any(ws, rays)[1][torch.arange(R), torch.from_numpy(tri)]
+    mode = torch.from_numpy(rng.integers(0, 4, R))
+    ok = torch.isfinite(t_aim) & (t_aim > 1e-3 * extent)
+    rays[:, 7] = torch.where(ok & (mode == 0), t_aim, rays[:, 7])
+    rays[:, 3] = torch.where(ok & (mode == 1), t_aim, rays[:, 3])
+    rays[:, 7] = torch.where(ok & (mode == 1), 2 * t_aim, rays[:, 7])
+    return rays
+
+
+@pytest.mark.parametrize("which", ["veach", "soup"])
+def test_any_pretest_never_rejects_an_accepted_pair(veach_scene, which):
+    """The any-hit kernel's division-free interval pre-test (ops/woop.py
+    mirror of csrc/woop.cu) rejects no pair that the exact predicate
+    accepts, on rays aimed at vertices and edges, grazing at |d'_z| ~ eps,
+    and with the hit at exactly t_lo or t_hi; on veach's own triangles and
+    on a soup of triangles from 1e-3 to 1e2 across. It rejects no pair of a
+    ray with t_lo = 0 (not an ordinary ray)."""
+    from mcpt_tpu_torch.ops.woop import any_pretest_rejects, pack_woop_table
+
+    at_lo = at_hi = accepted = rejected = 0
+    for seed in PRETEST_SEEDS:
+        rng = np.random.default_rng(seed)
+        if which == "veach":
+            g = veach_scene.geom
+            v0, e1, e2 = (np.asarray(x, np.float32) for x in (g.v0, g.e1, g.e2))
+        else:
+            T = 600
+            size = 10.0 ** rng.uniform(-3, 2, (T, 1))
+            v0 = rng.uniform(-50, 50, (T, 3)).astype(np.float32)
+            e1 = (rng.normal(size=(T, 3)) * size).astype(np.float32)
+            e2 = (rng.normal(size=(T, 3)) * size).astype(np.float32)
+        ws = pack_woop_table(*(torch.from_numpy(np.array(x)) for x in (v0, e1, e2)))
+        for _ in range(2):
+            rays = _adversarial_rays(rng, ws, v0, e1, e2, 512)
+            acc, t = _exact_any(ws, rays)
+            rej = any_pretest_rejects(ws, rays)
+            bad = rej & acc
+            assert not bool(bad.any()), torch.nonzero(bad)[:5]
+            rejected += int(rej.sum())
+            accepted += int(acc.sum())
+            at_lo += int((acc & (t == rays[:, 3:4])).sum())
+            at_hi += int((acc & (t == rays[:, 7:8])).sum())
+            rays[:, 3] = 0.0
+            assert not bool(any_pretest_rejects(ws, rays).any())
+    assert accepted > 500 and at_lo > 20 and at_hi > 20, (accepted, at_lo, at_hi)
+    assert rejected > 0

@@ -83,3 +83,49 @@ def soup_rays(rng, R, spread=6.0):
     d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
     o[: R // 4] = o[0]
     return o, d
+
+
+def deep_chain(D, rng, device="cpu"):
+    """A TraversalSet whose inner nodes form a chain D deep, and rays that
+    walk it. Inner node 2k's children are leaf 2k+1 (triangle k) and inner
+    node 2k+2, whose box holds every triangle below it, so a ray that enters
+    that box first goes down the chain and pushes leaf after leaf: its stack
+    holds up to D entries. Each triangle is an axis-aligned right triangle at
+    a random z, in a leaf box 0.02 thick, and covers x, y in [0.5, 1]; a
+    quarter of the rays go up through that square."""
+    from mcpt_tpu_torch.ops.traverse import pack_traversal
+    from mcpt_tpu_torch.scene import FlatBVH
+
+    T, N = D + 1, 2 * D + 1
+    corner = rng.uniform(0.0, 0.5, (T, 2))
+    size = rng.uniform(1.0, 1.5, (T, 1))
+    z = rng.uniform(0.0, 1.0, (T, 1))
+    v0 = np.concatenate([corner, z], axis=1).astype(np.float32)
+    e1 = np.concatenate([size, np.zeros((T, 2))], axis=1).astype(np.float32)
+    e2 = np.concatenate([np.zeros((T, 1)), size, np.zeros((T, 1))], axis=1).astype(np.float32)
+    leaf_lo = np.concatenate([corner, z - 0.01], axis=1)
+    leaf_hi = np.concatenate([corner + size, z + 0.01], axis=1)
+    below_lo = np.minimum.accumulate(leaf_lo[::-1])[::-1]  # over triangles k..D
+    below_hi = np.maximum.accumulate(leaf_hi[::-1])[::-1]
+    leaves = [2 * k + 1 for k in range(D)] + [2 * D]
+    lo, hi = np.zeros((N, 3)), np.zeros((N, 3))
+    count, first = np.zeros(N, np.int32), np.zeros(N, np.int32)
+    skip = np.full(N, -1, np.int32)
+    for k, n in enumerate(leaves):
+        lo[n], hi[n], count[n], first[n] = leaf_lo[k], leaf_hi[k], 1, k
+    for k in range(D):
+        lo[2 * k], hi[2 * k] = below_lo[k], below_hi[k]
+        skip[2 * k + 1] = 2 * k + 2  # a left leaf skips to its sibling
+    bvh = FlatBVH(**{k: torch.from_numpy(x).to(device) for k, x in
+                     (("lo", lo.astype(np.float32)), ("hi", hi.astype(np.float32)), ("first", first),
+                      ("count", count), ("skip", skip))})
+    ts = pack_traversal(bvh, *(torch.from_numpy(x).to(device) for x in (v0, e1, e2)))
+    R = 4096
+    o = np.concatenate([rng.uniform(-0.5, 2.5, (R, 2)), rng.uniform(-2.0, 3.0, (R, 1))], axis=1)
+    d = rng.normal(size=(R, 3)) * [0.3, 0.3, 1.0]
+    d[: R // 2, 2] = np.abs(d[: R // 2, 2])  # half aimed up the chain
+    q = R // 4
+    o[:q] = np.concatenate([rng.uniform(0.5, 0.75, (q, 2)), np.full((q, 1), -1.5)], axis=1)
+    d[:q] = rng.normal(size=(q, 3)) * [0.05, 0.05, 0.0] + [0.0, 0.0, 1.0]
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return ts, o.astype(np.float32), d.astype(np.float32)
