@@ -1,30 +1,32 @@
 #!/usr/bin/env python3
 """Drive the mcpt_tpu_torch port once on one CUDA card and check it.
 
-    python3 chip_smoke.py [--save-closest-batch PATH]
+    python3 chip_smoke.py [--save-closest-batch PATH] [--save-batches DIR]
 
 Phases, each printing its wall seconds:
   1. the device, and the card's name and power limit from nvidia-smi;
   2. one nvcc build of every kernel under mcpt_tpu_torch/csrc, and the g++
-     build of the host BVH builder (csrc/host);
+     build of the host BVH builder (csrc/host), with the -Xptxas -v lines
+     of the four Woop and traversal kernels;
   3. the Woop kernels against their plain torch versions on the card, on
-     veach-mis rays at the main path's shapes, with times (CUDA events);
+     veach-mis rays at the main path's shapes, with times (CUDA events) and
+     the share of pairs their interval pre-tests reject;
   4. the veach main path: Renderer on veach-mis at 1024x1024, 24 bounces,
      two passes of 1 spp, counting kernel launches; then the any-hit
      kernel against its plain version on the pass's first NEE shadow
-     batch, captured on the way, with times;
+     batch and the closest-hit kernel against its plain version on the
+     pass's third closest-hit batch, both captured on the way, with times;
   5. a small veach render on the card against the same render on the CPU;
   6. bathroom-stress (999,698 triangles) generated in memory, as
      scenes/generate.py's gen_stress writes it, its BVH built and uploaded,
      its traversal tables (child-pair table included) packed again, timed;
   7. the BVH traversal kernels against their plain versions on the card,
-     on its 1280x720 camera rays and their shadow rays, with times; the
-     closest-hit kernel's ordered walk against the skip-link walk;
+     on its 1280x720 camera rays and their shadow rays, with times; each
+     kernel's walk of the child-pair table against the skip-link walk;
   8. the bathroom main path: Renderer at 1280x720, 24 bounces, two passes
-     of 1 spp, counting kernel launches; then the closest-hit kernel
-     against its plain version on the pass's third closest-hit batch,
-     captured on the way, with times (saved to PATH with
-     --save-closest-batch, for time_closest_batch.py);
+     of 1 spp, counting kernel launches; then both kernels against their
+     plain versions and the skip-link walks on the pass's third closest-hit
+     and third any-hit batches, captured on the way, with times;
   9. a small render of a 5,986-triangle stress scene on the card against
      the same render on the CPU;
  10. bathroom-stress's treelet layout built again from its BVH, timed;
@@ -39,6 +41,13 @@ Phases, each printing its wall seconds:
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure raises and exits
 nonzero; without a CUDA card the script exits 1 before printing a result.
+
+--save-closest-batch PATH saves the rays of phase 8's third closest-hit
+batch to PATH; --save-batches DIR saves, for time_closest_batch.py, the
+rays of the batches the Woop closest-hit and the traversal kernels are
+timed on: woop_closest_camera.pt (phase 3), woop_closest_third.pt (phase
+4), traverse_any_shadow.pt (phase 7, sorted), traverse_closest_third.pt
+and traverse_any_third.pt (phase 8).
 """
 from __future__ import annotations
 
@@ -66,12 +75,13 @@ H100_FP32_OPS = 67e12  # FP32 peak outside the tensor cores, dense (SXM data she
 H100_BYTES = 3.35e12  # HBM3 bytes per second
 CLOSEST_OPS = 41  # f32 operations per (ray, triangle) test, csrc/woop.cu
 ANY_OPS = 40
-# The any-hit kernel (csrc/woop.cu any_pair) rejects a pair by its interval
-# test with 17 f32 operations: the projection's row 2 (11), |d'_z| >= eps,
-# the sign of N, 2 products and 2 compares. The bound counts those for a
-# pair the pre-test rejects and ANY_OPS for any other, so the earlier and
-# the new time read against one bound.
-ANY_REJECT_OPS = 17
+# Both Woop kernels (csrc/woop.cu) reject a pair by their interval test
+# with 17 f32 operations: the projection's row 2 (11), |d'_z| >= eps, the
+# sign of N, 2 products and 2 compares. Their bounds count those for a pair
+# the pre-test rejects and CLOSEST_OPS or ANY_OPS for any other: the work
+# this input needs. The bound at CLOSEST_OPS or ANY_OPS for every pair is
+# printed beside it.
+REJECT_OPS = 17
 # bathroom-stress: the scene, its main path and the traversal kernels' check
 STRESS_TRIS = 1_000_000  # gen_stress's target (999,698 triangles come out)
 SMALL_STRESS_TRIS = 6000  # 5,986 triangles, still above the 4,096 of the Woop pair
@@ -158,7 +168,8 @@ def build_kernels():
     info = _build.last_build
     if info:
         print(f"nvcc: {info['cmd']}\n{info['output'].strip()}")
-        for name in ("woop_any_kernel", "traverse_closest_kernel"):
+        for name in ("woop_closest_kernel", "woop_any_kernel", "traverse_closest_kernel",
+                     "traverse_any_kernel"):
             for line in _ptxas_usage(info["output"], name):
                 print(f"ptxas {name}: {line}")
     t0 = time.perf_counter()
@@ -203,41 +214,61 @@ def _capture(mod, attr, which):
 def _pairs(ws, rays, mask, first_hit_ends):
     """(ray, real triangle) tests this input needs: tested rays against the
     real triangles of their tiles' live chunks; with `first_hit_ends` a ray
-    stops at its first accept (any-hit). Returns (pairs, operations): each
-    pair counts CLOSEST_OPS, or for any hit ANY_REJECT_OPS where the any-hit
-    kernel's pre-test rejects it (ops/woop.py any_pretest_rejects) and
-    ANY_OPS where it does not."""
+    stops at its first accept (any-hit). Returns (pairs, operations,
+    rejects): rejects are the pairs the kernel's interval pre-test rejects,
+    replayed in the kernel's triangle order (ops/woop.py
+    any_pretest_rejects; closest_pretest_rejects against each pair's running
+    best_t); a pair counts REJECT_OPS where the pre-test rejects it and
+    CLOSEST_OPS or ANY_OPS where it does not."""
     import torch
 
     from mcpt_tpu_torch.ops import woop
 
     ids = torch.nonzero(woop._active(rays))[:, 0]
-    total = ops = 0
+    total = ops = rejects = 0
+    cols = torch.arange(ws.n_chunks * ws.chunk, device=rays.device)
     for r0 in range(0, ids.shape[0], 1 << 15):
         sel = ids[r0:r0 + (1 << 15)]
         ry = rays[sel]
         word = mask[sel // woop.RAY_TILE].to(torch.int64)
+        live = ((word[:, None] >> (cols // ws.chunk)[None, :]) & 1) != 0
+        tested = live & (cols < ws.n_tris)[None, :]
+        if not first_hit_ends:
+            # the running best_t each pair meets: t_hi, then the least t accepted before it
+            best = ry[:, 7].clone()
+            before = []
+            for c in range(ws.n_chunks):
+                t, u, v, ok = woop._project(ry, ws.tbl, ws.eps_closest, c, ws.chunk)
+                acc = (ok & (t >= ry[:, 3:4]) & (t < ry[:, 7:8]) & (u >= 0) & (v >= 0) & (1.0 - u - v >= 0)
+                       & tested[:, c * ws.chunk:(c + 1) * ws.chunk])
+                run = torch.cummin(torch.where(acc, t, float("inf")), dim=1).values
+                b = torch.minimum(best[:, None], torch.cat([torch.full_like(run[:, :1], float("inf")),
+                                                            run[:, :-1]], dim=1))
+                before.append(b)
+                best = torch.minimum(best, run[:, -1])
+            rej = woop.closest_pretest_rejects(ws, ry, torch.cat(before, dim=1)) & tested
+            n, n_rej = int(tested.sum()), int(rej.sum())
+            total += n
+            ops += n_rej * REJECT_OPS + (n - n_rej) * CLOSEST_OPS
+            rejects += n_rej
+            continue
         done = torch.zeros(sel.shape[0], dtype=torch.bool, device=rays.device)
-        rej = woop.any_pretest_rejects(ws, ry) if first_hit_ends else None
+        rej = woop.any_pretest_rejects(ws, ry)
         for c in range(ws.n_chunks):
-            live = ((word >> c) & 1) != 0
             real = max(0, min(ws.chunk, ws.n_tris - c * ws.chunk))
-            if not first_hit_ends:
-                total += int(live.sum()) * real
-                ops += int(live.sum()) * real * CLOSEST_OPS
-                continue
+            run = live[:, c * ws.chunk] & ~done
             t, u, v, ok = woop._project(ry, ws.tbl, ws.eps_any, c, ws.chunk)
             acc = (ok & (u >= 0) & (u <= 1.0) & (v >= 0) & (u + v <= 1.0)
                    & (t >= ry[:, 3:4]) & (t <= ry[:, 7:8]))[:, :real]
-            run = live & ~done
             has = acc.any(dim=1)
             first = torch.where(has, acc.int().argmax(dim=1) + 1, real)
-            tested = (torch.arange(real, device=rays.device)[None, :] < first[:, None]) & run[:, None]
-            cheap = tested & rej[:, c * ws.chunk:c * ws.chunk + real]
-            total += int(tested.sum())
-            ops += int(tested.sum()) * ANY_OPS - int(cheap.sum()) * (ANY_OPS - ANY_REJECT_OPS)
+            tst = (torch.arange(real, device=rays.device)[None, :] < first[:, None]) & run[:, None]
+            cheap = tst & rej[:, c * ws.chunk:c * ws.chunk + real]
+            total += int(tst.sum())
+            rejects += int(cheap.sum())
+            ops += int(tst.sum()) * ANY_OPS - int(cheap.sum()) * (ANY_OPS - REJECT_OPS)
             done |= run & has
-    return total, ops
+    return total, ops, rejects
 
 
 @phase("3 kernels vs plain")
@@ -323,7 +354,7 @@ def check_kernels(scene):
     ):
         ms = cuda_time_ms(lambda: kern(ws, ry, m))
         plain_ms = cuda_time_ms(lambda: plain(ws, ry, m), reps=5)
-        pairs, n_ops = _pairs(ws, ry, m, first_end)
+        pairs, n_ops, rejects = _pairs(ws, ry, m, first_end)
         nbytes = ry.shape[0] * (in_bytes + out_bytes) + 4 * (ws.tbl.numel() + ws.eps_any.numel() + m.numel())
         ops_s = n_ops / H100_FP32_OPS
         bytes_s = nbytes / H100_BYTES
@@ -331,13 +362,26 @@ def check_kernels(scene):
         print(f"{name}: {ry.shape[0]} rays, {pairs} live pairs, {n_ops} f32 operations, kernel {ms:.4f} ms, "
               f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({'operations' if ops_s >= bytes_s else 'bytes'}; "
               f"{1e3 * pairs * ops / H100_FP32_OPS:.4f} ms at {ops} a pair)")
+        print(f"{name}: the interval pre-test rejects {rejects} of {pairs} live pairs ({rejects / max(pairs, 1):.4f}); "
+              f"the bound counts {REJECT_OPS} operations for a rejected pair and {ops} for any other")
         out.append({"name": name, "route": "cuda", "source": "mcpt_tpu_torch/csrc/woop.cu",
                     "replaces": replaces, "launches": 0,
                     "max_abs_err": err if name == "woop_closest" else err_a,
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                     "bound_by": "operations" if ops_s >= bytes_s else "bytes",
                     "library_ms": None})
+    if SAVE_BATCHES:
+        _save(rc, "woop_closest_camera.pt")
     return out
+
+
+def _save(rays, name):
+    """Save a ray batch for time_closest_batch.py under --save-batches DIR."""
+    import torch
+
+    path = os.path.join(SAVE_BATCHES, name)
+    torch.save(rays.cpu(), path)
+    print(f"saved {rays.shape[0]} rays to {path}")
 
 
 def _kernel_modules():
@@ -401,16 +445,20 @@ def drive_main_path(scene, label, width, height, passes, family):
 def main_path(scene):
     """Phase 4's render, keeping the arguments of the pass's first NEE
     shadow batch (its second any-hit launch: the first iteration has no
-    shadow rays yet); then the any-hit kernel against its plain version on
-    that batch (0 rays may differ), with times."""
+    shadow rays yet) and of its third closest-hit launch (the rays of its
+    third wavefront iteration); then the any-hit and the closest-hit kernel
+    against their plain versions on those batches (0 rays may differ,
+    t/u/v bitwise), with times."""
     import torch
 
     from mcpt_tpu_torch.ops import woop
 
     store, restore = _capture(woop, "any_hit_woop_kernel", 2)
+    store_c, restore_c = _capture(woop, "closest_hit_woop_kernel", 3)
     try:
         launches = drive_main_path(scene, "veach", WIDTH, HEIGHT, PASSES, "woop")[0]
     finally:
+        restore_c()
         restore()
     ws, rays, mask = store["args"]
     k = woop.any_hit_woop_kernel(ws, rays, mask)
@@ -421,7 +469,7 @@ def main_path(scene):
     plain_ms = 1e3 * (time.perf_counter() - t0)
     n_diff = int((k != p).sum())
     ms = cuda_time_ms(lambda: woop.any_hit_woop_kernel(ws, rays, mask))
-    pairs, n_ops = _pairs(ws, rays, mask, True)
+    pairs, n_ops, _ = _pairs(ws, rays, mask, True)
     print(f"woop_any on the main path's first NEE shadow batch: {rays.shape[0]} rays, "
           f"{int(woop._active(rays).sum())} tested, occluded {float(p.float().mean()):.4f}, {n_diff} rays differ "
           f"from the plain version; {pairs} live pairs; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms (one run), "
@@ -429,6 +477,28 @@ def main_path(scene):
     if n_diff:
         raise AssertionError(f"any-hit kernel differs from its plain version on {n_diff} rays of the main "
                              "path's shadow batch")
+
+    ws, rays, mask = store_c["args"]
+    if SAVE_BATCHES:
+        _save(rays, "woop_closest_third.pt")
+    k = woop.closest_hit_woop_kernel(ws, rays, mask)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p = woop.closest_hit_woop_plain(ws, rays, mask)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    n_diff, bitwise, _ = _agreement("closest", k, p)
+    ms = cuda_time_ms(lambda: woop.closest_hit_woop_kernel(ws, rays, mask))
+    pairs, n_ops, rejects = _pairs(ws, rays, mask, False)
+    print(f"woop_closest on the main path's third closest-hit batch: {rays.shape[0]} rays, "
+          f"{int(woop._active(rays).sum())} tested, hits {float((p[1] >= 0).float().mean()):.4f}, {n_diff} rays "
+          f"differ from the plain version (bitwise {bitwise}); {pairs} live pairs, the pre-test rejects {rejects} "
+          f"({rejects / max(pairs, 1):.4f}); kernel {ms:.4f} ms, plain {plain_ms:.1f} ms (one run), bound "
+          f"{1e3 * n_ops / H100_FP32_OPS:.4f} ms (operations; {1e3 * pairs * CLOSEST_OPS / H100_FP32_OPS:.4f} ms "
+          f"at {CLOSEST_OPS} a pair)")
+    if n_diff or not bitwise:
+        raise AssertionError(f"closest-hit kernel differs from its plain version on {n_diff} rays (bitwise "
+                             f"{bitwise}) of the main path's third closest-hit batch")
     return launches
 
 
@@ -635,6 +705,34 @@ def bathroom_scene():
     return scene
 
 
+def _check_any(label, ts, rays):
+    """The any-hit kernel's answer on `rays` against its plain version
+    (any_hit_ordered_plain) and the skip-link walk: 0 rays may differ.
+    Prints the walks' visits and tests; returns the plain answer, the
+    skip-link walk's counts (the bound's), the plain version's wall ms (one
+    run) and the largest difference of the kernel's answer from either
+    walk's, as 0 or 1."""
+    import torch
+
+    from mcpt_tpu_torch.ops import traverse as tv
+
+    skip, skip_counts, skip_ms = _walk_plain(tv.any_hit_traverse_plain, ts, rays)
+    p, own, plain_ms = _walk_plain(tv.any_hit_ordered_plain, ts, rays)
+    k = tv.any_hit_traverse_kernel(ts, rays)
+    torch.cuda.synchronize()
+    R = rays.shape[0]
+    diffs = {"skip-link walk": int((p != skip).sum()), "kernel": int((k != p).sum())}
+    err = max(float((k.int() - w.int()).abs().max()) if R else 0.0 for w in (p, skip))
+    print(f"traverse_any ({label}): {R} rays, occluded {float(p.float().mean()):.4f}; rays differing from the plain "
+          f"version: {diffs}; child-pair visits {own['pair_visits']} ({own['pair_visits'] / R:.2f} a ray), "
+          f"triangle tests {own['tri_tests']} ({own['tri_tests'] / R:.2f}); plain {plain_ms:.1f} ms (one run); "
+          f"skip-link walk {skip_counts['node_visits']} node visits ({skip_counts['node_visits'] / R:.2f}), "
+          f"{skip_counts['tri_tests']} triangle tests ({skip_counts['tri_tests'] / R:.2f}), {skip_ms:.1f} ms")
+    if any(diffs.values()):
+        raise AssertionError(f"traverse_any differs on the {label} batch: {diffs}")
+    return p, skip_counts, plain_ms, err
+
+
 def _traversal_bound(kind, counts, rays, ts):
     """Least time (ms) for this batch and what sets it: this run's node visits
     and triangle tests times their f32 operations over the FP32 rate, or the
@@ -687,8 +785,8 @@ def check_traversal(scene):
     """Each traversal kernel against its plain version on the same sorted
     batch (the main path's order): 0 rays may differ, t/u/v bitwise. Closest
     hit on the scene camera's rays, any hit on shadow rays from their hits to
-    points on the light; the closest-hit kernel's ordered walk also against
-    the skip-link walk. Returns the kernels' entries, the two batches
+    points on the light; each kernel's walk of the child-pair table also
+    against the skip-link walk. Returns the kernels' entries, the two batches
     (packed, in pixel order) and the skip-link walks' counts on each."""
     import torch
 
@@ -728,27 +826,16 @@ def check_traversal(scene):
             k = kern(ts, srt)
             torch.cuda.synchronize()
             p, walks[kind], plain_ms = _check_ordered("camera", ts, srt, k)
-            err = 0.0
+            err = 0.0  # _check_ordered holds t, u, v and the ids bit for bit
             back_t, back_tri = torch.empty_like(p[0]), torch.empty_like(p[1])
             back_t[order], back_tri[order] = p[0], p[1]
             results["closest"] = (back_t, back_tri)
         else:
-            plain = tv.any_hit_traverse_plain
-            p, counts, walk_ms = _walk_plain(plain, ts, srt)
-            walks[kind] = counts
-            k = kern(ts, srt)
-            torch.cuda.synchronize()
-            n_diff = int((k != p).sum())
-            err = float((k.int() - p.int()).abs().max())
-            print(f"traverse_any: {rays.shape[0]} rays, occluded {float(p.float().mean()):.4f}, {n_diff} rays "
-                  f"differ; plain walk {walk_ms / 1e3:.2f} s, {counts['node_visits']} node visits, "
-                  f"{counts['tri_tests']} triangle tests")
-            if n_diff:
-                raise AssertionError(f"traverse_any kernel differs from its plain version on {n_diff} rays")
+            _, walks[kind], plain_ms, err = _check_any("shadow", ts, srt)
+            if SAVE_BATCHES:
+                _save(srt, "traverse_any_shadow.pt")
         ms = cuda_time_ms(lambda: kern(ts, srt))
         ms_unsorted = cuda_time_ms(lambda: kern(ts, rays))
-        if kind == "any":
-            plain_ms = cuda_time_ms(lambda: tv.any_hit_traverse_plain(ts, srt), reps=3)
         bound_ms, by = _traversal_bound(kind, walks[kind], srt, ts)
         print(f"traverse_{kind}: kernel {ms:.4f} ms sorted, {ms_unsorted:.4f} ms unsorted "
               f"({ms_unsorted / ms:.2f}x), plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({by}; the "
@@ -763,27 +850,39 @@ def check_traversal(scene):
 @phase("8 bathroom main path")
 def bathroom_main_path(scene):
     """Phase 8's render, keeping the arguments of the pass's third
-    closest-hit launch (the rays of its third wavefront iteration); then the
-    closest-hit kernel against its plain version and the skip-link walk on
-    that batch, with times."""
+    closest-hit and third any-hit launches (the rays of its third wavefront
+    iteration, and of the third shadow launch); then each kernel against its
+    plain version and the skip-link walk on its batch, with times."""
+    import torch
+
     from mcpt_tpu_torch.ops import traverse as tv
 
     store, restore = _capture(tv, "closest_hit_traverse_kernel", 3)
+    store_a, restore_a = _capture(tv, "any_hit_traverse_kernel", 3)
     try:
         out = drive_main_path(scene, "bathroom", BATH_W, BATH_H, BATH_PASSES, "traverse")
     finally:
+        restore_a()
         restore()
     ts, rays = store["args"]
     if SAVE_CLOSEST_BATCH:
-        import torch
-
         torch.save(rays.cpu(), SAVE_CLOSEST_BATCH)
         print(f"saved the third-iteration closest batch to {SAVE_CLOSEST_BATCH}")
+    if SAVE_BATCHES:
+        _save(rays, "traverse_closest_third.pt")
     k = tv.closest_hit_traverse_kernel(ts, rays)
     _, counts, _ = _check_ordered("main path, third iteration", ts, rays, k)
     ms = cuda_time_ms(lambda: tv.closest_hit_traverse_kernel(ts, rays))
     bound_ms, by = _traversal_bound("closest", counts, rays, ts)
     print(f"traverse_closest (main path, third iteration): kernel {ms:.4f} ms, bound {bound_ms:.4f} ms ({by})")
+
+    ts, rays = store_a["args"]
+    if SAVE_BATCHES:
+        _save(rays, "traverse_any_third.pt")
+    _, counts, _, _ = _check_any("main path, third launch", ts, rays)
+    ms = cuda_time_ms(lambda: tv.any_hit_traverse_kernel(ts, rays))
+    bound_ms, by = _traversal_bound("any", counts, rays, ts)
+    print(f"traverse_any (main path, third launch): kernel {ms:.4f} ms, bound {bound_ms:.4f} ms ({by})")
     return out
 
 
@@ -1058,20 +1157,27 @@ def small_select_reference():
 
 
 # With --save-closest-batch PATH, phase 8 saves the rays of the bathroom
-# pass's third closest-hit launch there (for time_closest_batch.py).
+# pass's third closest-hit launch there; with --save-batches DIR, phases 3,
+# 4, 7 and 8 save their timed batches there (for time_closest_batch.py).
 SAVE_CLOSEST_BATCH = None
+SAVE_BATCHES = None
 
 
 def main() -> int:
+    import argparse
+
     import torch
 
-    global SAVE_CLOSEST_BATCH
-    args = sys.argv[1:]
-    if args[:1] == ["--save-closest-batch"] and len(args) == 2:
-        SAVE_CLOSEST_BATCH = os.path.abspath(args[1])
-    elif args:
-        print("usage: chip_smoke.py [--save-closest-batch PATH]", file=sys.stderr)
-        return 2
+    global SAVE_CLOSEST_BATCH, SAVE_BATCHES
+    ap = argparse.ArgumentParser(description="Drive the mcpt_tpu_torch port once on one CUDA card and check it.")
+    ap.add_argument("--save-closest-batch", metavar="PATH", help="save phase 8's third closest-hit batch")
+    ap.add_argument("--save-batches", metavar="DIR", help="save the timed batches of phases 3, 4, 7 and 8")
+    args = ap.parse_args()
+    if args.save_closest_batch:
+        SAVE_CLOSEST_BATCH = os.path.abspath(args.save_closest_batch)
+    if args.save_batches:
+        SAVE_BATCHES = os.path.abspath(args.save_batches)
+        os.makedirs(SAVE_BATCHES, exist_ok=True)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)

@@ -14,39 +14,46 @@
 // Triangles are three float4 (v0, e1, e2), read through the read-only
 // cache. There is no shared memory and no __syncthreads().
 //
-// Any hit walks the flattened preorder BVH with skip links (ops/bvh.py):
-// box hit of an inner node -> node + 1; box hit of a leaf -> test its <=
-// kLeafSize triangles, then skip; box miss -> skip; -1 ends. Nodes are two
-// float4 (lo.xyz, first*8 + count; hi.xyz, skip).
+// Both kernels walk the child-pair table (ops/traverse.py
+// TraversalSet.pairs, one 64-byte row per inner node: both children's boxes
+// and refs) with a per-thread stack. After the root box (nodes[0]), each
+// inner row starts its four float4 loads together and tests both boxes; a
+// ref is row*8 for an inner child and first*8 + count for a leaf. The stack
+// holds at most the tree's depth in inner nodes (TraversalSet.depth); each
+// kernel comes with a stack of 64 entries and one of 128, and the entry
+// point launches the smaller one that holds the tree (pack_traversal
+// refuses a deeper one; the SAH trees of the scenes are about 30 deep).
 //
-// Closest hit walks the child-pair table (ops/traverse.py TraversalSet.pairs,
-// one 64-byte row per inner node: both children's boxes and refs) near
-// child first. After the root box, each inner row starts its four float4
-// loads together and tests both boxes over [t_lo, min(best_t, t_hi)]; the
-// walk goes to the hit child with the smaller entry t and pushes the other
-// with its entry t onto a per-thread stack. The stack holds at most the
-// tree's depth in inner nodes (TraversalSet.depth); the kernel comes with
-// a stack of 64 entries and one of 128, and the entry point launches the
-// smaller one that holds the tree (pack_traversal refuses a deeper one;
-// the SAH trees of the scenes are about 30 deep). A leaf tests its triangles and
-// keeps the smaller t, or the lower id on an equal t. After a leaf, or a
-// row with no child hit, it pops, dropping without a load every entry whose
-// t no longer lies below min(best_t, t_hi), which is the slab test of that
-// box with the running best_t. So best_t falls early and far subtrees are
-// culled before they are entered.
+// Closest hit walks near child first. Each row tests both boxes over
+// [t_lo, min(best_t, t_hi)]; the walk goes to the hit child with the
+// smaller entry t and pushes the other with its entry t. A leaf tests its
+// triangles and keeps the smaller t, or the lower id on an equal t. After a
+// leaf, or a row with no child hit, it pops, dropping without a load every
+// entry whose t no longer lies below min(best_t, t_hi), which is the slab
+// test of that box with the running best_t. So best_t falls early and far
+// subtrees are culled before they are entered.
+//
+// Any hit tests both boxes over [t_lo, t_hi], goes to one hit child and
+// pushes the other (refs only: with no best_t nothing is culled on a pop),
+// and stops at the first accept. A leaf is tested if and only if its own
+// slab test and all its ancestors' pass over the same [t_lo, t_hi] with the
+// same floats, as in the reference's skip-link walk (ops/bvh.py FlatBVH:
+// box hit of an inner node -> node + 1, box miss or leaf -> skip), so both
+// walks test the same leaves up to the first accept and give the same
+// answer in any child order. The kernel goes near child first (the smaller
+// entry t, left on a tie).
 //
 // Arithmetic: ray_common.cuh's, single rounded f32 operations in the plain
 // version's order (ops/traverse.py), so each kernel agrees with its plain
-// walk bit for bit (closest_hit_ordered_plain, any_hit_traverse_plain).
+// walk bit for bit (closest_hit_ordered_plain, any_hit_ordered_plain).
 //
-// Loops are bounded: the skip-link cursor only moves forward and the
-// ordered walk visits each row and leaf at most once, both capped at
-// n_nodes steps anyway; the leaf loop at kLeafSize.
+// Loops are bounded: a walk visits each row and leaf at most once, capped
+// at n_nodes steps anyway; the leaf loop at kLeafSize.
 //
 // Bound on this card: FP32 arithmetic per box test (~29 operations) and
-// per triangle test (~56), against 32 (any) or 64 (closest, two boxes)
-// bytes of node and 48 of triangle read per visit; the visits are
-// data-dependent and the reads scattered.
+// per triangle test (~56), against 64 bytes of row (two boxes) and 48 of
+// triangle read per visit; the visits are data-dependent and the reads
+// scattered.
 
 #include "ray_common.cuh"
 
@@ -191,26 +198,43 @@ traverse_closest_kernel(const float4* __restrict__ rays, const float4* __restric
   out_v[i] = found ? w.best.v : 0.f;
 }
 
+template <int kStack>
 __global__ void __launch_bounds__(kBlock)
 traverse_any_kernel(const float4* __restrict__ rays, const float4* __restrict__ nodes,
-                    const float4* __restrict__ tris, int R, int n_nodes,
-                    bool* __restrict__ out_hit) {
+                    const float4* __restrict__ pairs, const float4* __restrict__ tris, int R,
+                    int root_ref, int max_steps, bool* __restrict__ out_hit) {
   const int i = blockIdx.x * kBlock + threadIdx.x;
   if (i >= R) return;
-  const float4 a = rays[2 * i];
-  const float4 b = rays[2 * i + 1];
+  const float4 a = rays[2 * i];      // o.xyz, t_lo
+  const float4 b = rays[2 * i + 1];  // d.xyz, t_hi
   bool found = false;
   if (tested(a, b)) {
     const Ray r = make_ray(a, b);
-    int node = 0;
-    for (int step = 0; step < n_nodes && node >= 0 && !found; ++step) {
-      const float4 na = __ldg(&nodes[2 * node]);
-      const float4 nb = __ldg(&nodes[2 * node + 1]);
-      const bool hit = slab(na, nb, r, a.w, b.w);
-      const int word = __float_as_int(na.w);
-      const int cnt = min(word & 7, kLeafSize);
-      if (hit && cnt > 0) {
-        const int first = word >> 3;
+    int ref = slab(__ldg(&nodes[0]), __ldg(&nodes[1]), r, a.w, b.w) ? root_ref : -1;
+    int sp = 0;
+    int stk[kStack];
+    for (int step = 0; step < max_steps && ref >= 0; ++step) {
+      if ((ref & 7) == 0) {
+        const float4* row = pairs + 4 * (ref >> 3);
+        const float4 l0 = __ldg(row), l1 = __ldg(row + 1), r0 = __ldg(row + 2), r1 = __ldg(row + 3);
+        float tl, tr;
+        const bool hl = slab(l0, l1, r, a.w, b.w, tl);
+        const bool hr = slab(r0, r1, r, a.w, b.w, tr);
+        const int lref = __float_as_int(l0.w), rref = __float_as_int(l1.w);
+        if (hl && hr) {
+          const bool lfirst = tl <= tr;
+          stk[sp++] = lfirst ? rref : lref;
+          ref = lfirst ? lref : rref;
+        } else if (hl) {
+          ref = lref;
+        } else if (hr) {
+          ref = rref;
+        } else {
+          ref = sp > 0 ? stk[--sp] : -1;
+        }
+      } else {
+        const int first = ref >> 3;
+        const int cnt = min(ref & 7, kLeafSize);
         for (int k = 0; k < cnt; ++k) {
           const Tuv h = mt(tris, first + k, r, kDetAny);
           if (h.ok && h.u >= 0.f && h.u <= 1.0f && h.v >= 0.f && __fadd_rn(h.u, h.v) <= 1.0f &&
@@ -219,8 +243,9 @@ traverse_any_kernel(const float4* __restrict__ rays, const float4* __restrict__ 
             break;
           }
         }
+        if (found) break;
+        ref = sp > 0 ? stk[--sp] : -1;
       }
-      node = (hit && (word & 7) == 0) ? node + 1 : __float_as_int(nb.w);
     }
   }
   out_hit[i] = found;
@@ -246,12 +271,16 @@ int traverse_closest(const float* rays, const float* nodes, const float* pairs, 
   return (int)cudaGetLastError();
 }
 
-int traverse_any(const float* rays, const float* nodes, const float* tris, int R, int n_nodes,
-                 bool* out_hit, void* stream) {
+int traverse_any(const float* rays, const float* nodes, const float* pairs, const float* tris, int R,
+                 int root_ref, int n_nodes, int depth, bool* out_hit, void* stream) {
+  if (depth > kStackMax) return (int)cudaErrorInvalidValue;
   const int blocks = (R + kBlock - 1) / kBlock;
-  traverse_any_kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
+  auto kernel = depth <= kStackSmall ? traverse_any_kernel<kStackSmall>
+                                     : traverse_any_kernel<kStackMax>;
+  kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
       reinterpret_cast<const float4*>(rays), reinterpret_cast<const float4*>(nodes),
-      reinterpret_cast<const float4*>(tris), R, n_nodes, out_hit);
+      reinterpret_cast<const float4*>(pairs), reinterpret_cast<const float4*>(tris), R, root_ref,
+      n_nodes, out_hit);
   return (int)cudaGetLastError();
 }
 

@@ -39,10 +39,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points and their argument types; every pointer and the stream are
 # c_void_p, every one returns cudaGetLastError().
 SIGNATURES = {
-    "woop_closest": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    "woop_closest": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "woop_any": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "traverse_closest": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
-    "traverse_any": [_P, _P, _P, _I, _I, _P, _P],
+    "traverse_any": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "schedule_closest": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "schedule_any": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     "select_closest": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],

@@ -392,7 +392,7 @@ def _schedule(scene, org, dirn, t_min, t_max, v, closest):
         if rays.is_cuda:
             fallback = tv.closest_hit_traverse_kernel if closest else tv.any_hit_traverse_kernel
         else:
-            fallback = tv.closest_hit_ordered_plain if closest else tv.any_hit_traverse_plain
+            fallback = tv.closest_hit_ordered_plain if closest else tv.any_hit_ordered_plain
         trav = fallback(scene.trav, fb)
         out = (tuple(torch.where(inc, a, b) for a, b in zip(trav, out)) if closest
                else torch.where(inc, trav, out))

@@ -24,18 +24,23 @@ the node count. Accept predicates are those of ops/intersect.py; a closest
 hit takes the first of equal t in leaf order and then needs a strict
 t < best_t, which is the reference's lowest-id-on-a-tie for the BVH walk.
 
-The closest-hit kernel walks the child-pair table instead, nearer child
-first with a stack (closest_hit_ordered_plain says how). It tests the same
-boxes with the same slab test and the running best_t, in another order, and
-takes the lower id on an equal t explicitly; it can differ from the
-skip-link walk only where that walk's strict cull at best_t hides a tie, or
-on a one-ulp box-face case (ROADMAP queue 3 item 4).
+The kernels walk the child-pair table instead, with a stack. The
+closest-hit walk goes nearer child first (closest_hit_ordered_plain says
+how): it tests the same boxes with the same slab test and the running
+best_t, in another order, and takes the lower id on an equal t explicitly;
+it can differ from the skip-link walk only where that walk's strict cull at
+best_t hides a tie, or on a one-ulp box-face case (ROADMAP queue 3 item 4).
+The any-hit walk (any_hit_ordered_plain) tests the same leaves as the
+skip-link walk, in another order, so its answer is that walk's on every
+ray.
 
 Each function comes twice: the CUDA kernels in csrc/traverse.cu, launched by
 `closest_hit_traverse` / `any_hit_traverse` on CUDA tensors, and the plain
-torch versions (closest_hit_ordered_plain, any_hit_traverse_plain), which
+torch versions (closest_hit_ordered_plain, any_hit_ordered_plain), which
 the wrappers run on CPU tensors and which the card compares the kernels
-with. Both write Moller-Trumbore and the slab test as single f32 multiplies
+with. The skip-link walks (closest_hit_traverse_plain,
+any_hit_traverse_plain) stay as the reference walks; their visits and tests
+define the kernels' bound. Both write Moller-Trumbore and the slab test as single f32 multiplies
 and adds in one fixed order, with no fused multiply-add, so the two agree
 bit for bit. Above RAY_TILE rays the wrappers sort the rays by (octant,
 origin Morton, direction Morton) first, as mcpt_tpu's _ray_sort_order
@@ -55,9 +60,9 @@ from mcpt_tpu_torch.ops.woop import _active, _ptr, pack_rays
 
 RAY_TILE = 128  # rays per CUDA block; the ray sort applies above it (mcpt_tpu DEFAULT_RAY_TILE)
 FAR_FUDGE = 1.001  # reference AABB::Intersection far-plane factor
-# The deepest tree (in inner nodes) that the closest-hit kernel's stack
-# holds: csrc/traverse.cu launches a 64-entry stack up to depth 64 and a
-# 128-entry one above it.
+# The deepest tree (in inner nodes) that the kernels' stacks hold:
+# csrc/traverse.cu launches a 64-entry stack up to depth 64 and a 128-entry
+# one above it.
 STACK_SIZE = 128
 
 # Launch counts of the kernels, and call counts of their plain versions.
@@ -73,7 +78,7 @@ class TraversalSet:
     bits), two float4 loads a node; count 0 marks an inner node. tris row k:
     v0.xyz, 0, e1.xyz, 0, e2.xyz, 0, three float4 loads a triangle.
 
-    pairs (the closest-hit walk's child-pair table) has one 64-byte row per
+    pairs (the kernels' child-pair table) has one 64-byte row per
     inner node of the BVH, in preorder: left child's lo.xyz, left ref, left
     hi.xyz, right ref, right lo.xyz, 0, right hi.xyz, 0 (refs as int32
     bits). The children of inner node n are n+1 and skip[n+1], their boxes
@@ -146,7 +151,7 @@ def _child_pairs(nodes, word, skip):
         depth = deeper
     deepest = int(depth[word != 0].max()) if N else 0
     if deepest > STACK_SIZE:
-        raise ValueError(f"the BVH is deeper than the closest-hit walk's stack of {STACK_SIZE} entries")
+        raise ValueError(f"the BVH is deeper than the traversal kernels' stack of {STACK_SIZE} entries")
     return pairs, int(ref[0]), deepest
 
 
@@ -404,12 +409,94 @@ def closest_hit_ordered_plain(ts: TraversalSet, rays: torch.Tensor, counts: Opti
 
 
 def any_hit_traverse_plain(ts: TraversalSet, rays: torch.Tensor, counts: Optional[dict] = None):
-    """Plain torch any hit of packed rays: bool[R]. With `counts`, adds the
-    node visits and the triangle tests up to each ray's first accept."""
+    """Plain torch any hit of packed rays by the skip-link walk, the
+    reference walk: bool[R]. With `counts`, adds the node visits and the
+    triangle tests up to each ray's first accept (the any-hit rows' bound in
+    chip_smoke.py counts these)."""
     PLAIN_CALLS["any"] += 1
     res = torch.zeros(rays.shape[0], dtype=torch.bool, device=rays.device)
     ids, out = _walk(ts, rays, False, counts)
     res[ids] = out[1] >= 0
+    return res
+
+
+def any_hit_ordered_plain(ts: TraversalSet, rays: torch.Tensor, counts: Optional[dict] = None):
+    """Plain torch any hit of packed rays by the any-hit kernel's walk of
+    the child-pair table: bool[R], any_hit_traverse_plain's answer. With
+    `counts`, adds this call's child-pair visits (inner rows) and triangle
+    tests up to each ray's first accept to it.
+
+    Each ray tests the root box, then walks the child-pair table from the
+    root: at an inner row it tests both children's boxes over [t_lo, t_hi];
+    if both hit, it goes to the one with the smaller entry t (the left one
+    on equal entries) and pushes the other; at a leaf it tests the
+    triangles in order and ends at the first accept; after a leaf or a row
+    with no child hit it pops. All lanes take a step at a time."""
+    PLAIN_CALLS["any"] += 1
+    R = rays.shape[0]
+    dev = rays.device
+    res = torch.zeros(R, dtype=torch.bool, device=dev)
+    ids = torch.nonzero(_active(rays))[:, 0]
+    o, t_lo, d, t_hi = rays[ids, 0:3], rays[ids, 3], rays[ids, 4:7], rays[ids, 7]
+    inv = 1.0 / d
+    n = ids.shape[0]
+    hit = _slab(ts.nodes[0:1].expand(n, 8), o, inv, t_lo, t_hi)
+    ref = torch.where(hit, ts.root_ref, -1).long()
+    stk = torch.zeros((n, max(1, ts.depth)), dtype=torch.int64, device=dev)  # depth entries at most
+    sp = torch.zeros(n, dtype=torch.int64, device=dev)
+    found = torch.zeros(n, dtype=torch.bool, device=dev)
+    lane = ids  # each live lane's ray
+    visits = tests = 0
+    for _ in range(ts.n_nodes + 1):  # a walk visits each row and leaf at most once
+        done = ref < 0
+        if bool(done.any()):
+            res[lane[done]] = found[done]
+            keep = ~done
+            lane, ref, o, d, inv, t_lo, t_hi, stk, sp, found = (
+                x[keep] for x in (lane, ref, o, d, inv, t_lo, t_hi, stk, sp, found))
+        if lane.shape[0] == 0:
+            break
+        pop = torch.zeros(lane.shape[0], dtype=torch.bool, device=dev)
+        ii = torch.nonzero((ref & 7) == 0)[:, 0]
+        if ii.shape[0]:
+            visits += ii.shape[0]
+            row = ts.pairs[ref[ii] >> 3]
+            hl, tl = _slab_entry(row[:, 0:8], o[ii], inv[ii], t_lo[ii], t_hi[ii])
+            hr, tr = _slab_entry(row[:, 8:16], o[ii], inv[ii], t_lo[ii], t_hi[ii])
+            lref = row[:, 3].view(torch.int32).long()
+            rref = row[:, 7].view(torch.int32).long()
+            lfirst = tl <= tr
+            both = hl & hr
+            bi = ii[both]
+            stk[bi, sp[bi]] = torch.where(lfirst, rref, lref)[both]
+            sp[bi] += 1
+            ref[ii] = torch.where(both, torch.where(lfirst, lref, rref),
+                                  torch.where(hl, lref, torch.where(hr, rref, -1)))
+            pop[ii] = ~(hl | hr)
+        li = torch.nonzero((ref >= 0) & ((ref & 7) != 0))[:, 0]
+        if li.shape[0]:
+            first, cnt = ref[li] >> 3, ref[li] & 7
+            lo_, do_, tl_, th_ = o[li], d[li], t_lo[li], t_hi[li]
+            f = torch.zeros(li.shape[0], dtype=torch.bool, device=dev)
+            for k in range(DEFAULT_LEAF_SIZE):
+                on = (k < cnt) & ~f
+                tests += int(on.sum())
+                tri = torch.clamp(first + k, max=ts.n_tris - 1)
+                t, u, v, ok = _mt(ts.tris[tri], lo_, do_, DET_EPS_ANY)
+                f |= (on & ok & (u >= 0) & (u <= 1.0) & (v >= 0) & (u + v <= 1.0) & (t >= tl_)
+                      & (t <= th_))
+            found[li] = f
+            ref[li[f]] = -1  # the walk ends at its first accept
+            pop[li[~f]] = True
+        pi = torch.nonzero(pop)[:, 0]
+        has = sp[pi] > 0
+        sp[pi] -= has.long()
+        ref[pi] = torch.where(has, stk[pi, sp[pi]], -1)
+    if lane.shape[0]:
+        raise RuntimeError(f"{lane.shape[0]} walks did not end within {ts.n_nodes + 1} steps")
+    if counts is not None:
+        counts["pair_visits"] = counts.get("pair_visits", 0) + visits
+        counts["tri_tests"] = counts.get("tri_tests", 0) + tests
     return res
 
 
@@ -449,7 +536,8 @@ def closest_hit_traverse_kernel(ts: TraversalSet, rays: torch.Tensor):
 
 
 def any_hit_traverse_kernel(ts: TraversalSet, rays: torch.Tensor):
-    """Launch csrc/traverse.cu's any-hit kernel; same contract as the plain version."""
+    """Launch csrc/traverse.cu's any-hit kernel (the walk of the child-pair
+    table, nearer child first); same contract as any_hit_ordered_plain."""
     from mcpt_tpu_torch.ops._build import check, library
 
     _check_inputs(ts, rays)
@@ -459,8 +547,8 @@ def any_hit_traverse_kernel(ts: TraversalSet, rays: torch.Tensor):
         return out
     stream = torch.cuda.current_stream(rays.device).cuda_stream
     check(library().traverse_any(
-        _ptr(rays), _ptr(ts.nodes), _ptr(ts.tris), R, ts.n_nodes, _ptr(out),
-        ctypes.c_void_p(stream)), "traverse_any")
+        _ptr(rays), _ptr(ts.nodes), _ptr(ts.pairs), _ptr(ts.tris), R, ts.root_ref, ts.n_nodes, ts.depth,
+        _ptr(out), ctypes.c_void_p(stream)), "traverse_any")
     LAUNCHES["any"] += 1
     return out
 
@@ -492,6 +580,6 @@ def closest_hit_traverse(ts: TraversalSet, org, dirn, t_min, t_max):
 
 
 def any_hit_traverse(ts: TraversalSet, org, dirn, t_min, t_max):
-    """bool[R] occlusion: the CUDA kernel on a CUDA tensor, the plain version
-    on a CPU tensor."""
-    return _sorted(ts, org, dirn, t_min, t_max, any_hit_traverse_kernel, any_hit_traverse_plain)
+    """bool[R] occlusion: the CUDA kernel on a CUDA tensor, its plain version
+    (the walk of the child-pair table) on a CPU tensor."""
+    return _sorted(ts, org, dirn, t_min, t_max, any_hit_traverse_kernel, any_hit_ordered_plain)

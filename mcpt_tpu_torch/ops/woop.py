@@ -16,7 +16,11 @@ product of the TPU kernel) as its nonzero terms, multiplied and summed left
 to right with every operation rounded to f32 and no fused multiply-add:
 a library matmul sums in an order of its own, which moves results by an
 ulp and flips rays that graze the hard accept thresholds. So the kernel
-and its plain version agree bit for bit.
+and its plain version agree bit for bit. The kernels put a division-free
+interval pre-test in front of the exact predicate, which rejects a pair
+only where the exact path would; any_pretest_rejects and
+closest_pretest_rejects are its torch mirrors, which the tests hold to
+the exact predicates.
 """
 from __future__ import annotations
 
@@ -246,32 +250,49 @@ def any_hit_woop_plain(ws: WoopSet, rays: torch.Tensor, mask: torch.Tensor):
     return out
 
 
-# The any-hit kernel's division-free pre-test (csrc/woop.cu, whose comment
-# derives its margins): it applies to ordinary pairs only.
+# The kernels' division-free pre-test (csrc/woop.cu, whose comment derives
+# its margins): it applies to ordinary pairs only.
 ORD_MAX = 2.0**24  # |o|, |d|, |W|, |p| of an ordinary pair
 ORD_LO = 2.0**-100  # least t_lo of an ordinary ray
-REL_MARGIN = 2.0**-20  # of t_lo and t_hi
+REL_MARGIN = 2.0**-20  # of t_lo and t_hi (best_t)
 
 
-def any_pretest_rejects(ws: WoopSet, rays: torch.Tensor) -> torch.Tensor:
-    """bool[R, Tp]: the pairs that csrc/woop.cu's any-hit kernel rejects
-    before its exact predicate by its interval test, operation for operation
-    (each f32 operation rounded once, in the kernel's order). The kernel's
-    own |d'_z| >= eps test is not part of it. Every pair rejected here must be one that the exact
-    predicate (any_hit_woop_plain) rejects; the tests hold it to that."""
+def _interval_rejects(ws: WoopSet, rays: torch.Tensor, t_up: torch.Tensor) -> torch.Tensor:
+    """bool[R, Tp]: the interval test of csrc/woop.cu against [t_lo, t_up]
+    (t_up broadcast against [R, Tp]), operation for operation: row 2 of the
+    projection, each f32 operation rounded once, in the kernel's order."""
     w = ws.tbl
     o, d = rays[:, 0:3], rays[:, 4:7]
-    lo, hi = rays[:, 3:4], rays[:, 7:8]
-    po = [o[:, 0:1] * w[4 * k] + o[:, 1:2] * w[4 * k + 1] + o[:, 2:3] * w[4 * k + 2] + w[4 * k + 3]
-          for k in range(3)]
-    pd = [d[:, 0:1] * w[4 * k] + d[:, 1:2] * w[4 * k + 1] + d[:, 2:3] * w[4 * k + 2] for k in range(3)]
-    a = torch.abs(pd[2])
-    n = torch.where(pd[2] < 0, po[2], -po[2])
-    out = (n < (lo * (1.0 - REL_MARGIN)) * a) | (n > (hi * (1.0 + REL_MARGIN)) * a)
+    lo = rays[:, 3:4]
+    po2 = o[:, 0:1] * w[8] + o[:, 1:2] * w[9] + o[:, 2:3] * w[10] + w[11]
+    pd2 = d[:, 0:1] * w[8] + d[:, 1:2] * w[9] + d[:, 2:3] * w[10]
+    a = torch.abs(pd2)
+    n = torch.where(pd2 < 0, po2, -po2)
+    out = (n < (lo * (1.0 - REL_MARGIN)) * a) | (n > (t_up * (1.0 + REL_MARGIN)) * a)
     ray_ord = ((lo[:, 0] >= ORD_LO) & (torch.abs(o) <= ORD_MAX).all(dim=1)
                & (torch.abs(d) <= ORD_MAX).all(dim=1))
     tri_ord = (torch.abs(w) <= ORD_MAX).all(dim=0)
     return out & ray_ord[:, None] & tri_ord[None, :]
+
+
+def any_pretest_rejects(ws: WoopSet, rays: torch.Tensor) -> torch.Tensor:
+    """bool[R, Tp]: the pairs that csrc/woop.cu's any-hit kernel rejects
+    before its exact predicate by its interval test against [t_lo, t_hi].
+    The kernel's own |d'_z| >= eps test is not part of it. Every pair
+    rejected here must be one that the exact predicate (any_hit_woop_plain)
+    rejects; the tests hold it to that."""
+    return _interval_rejects(ws, rays, rays[:, 7:8])
+
+
+def closest_pretest_rejects(ws: WoopSet, rays: torch.Tensor, best_t: torch.Tensor) -> torch.Tensor:
+    """bool[R, Tp]: the pairs that csrc/woop.cu's closest-hit kernel rejects
+    before rows 0 and 1 and its division, by its interval test against
+    [t_lo, best_t], where best_t (broadcast against [R, Tp]) is the ray's
+    running best when the kernel reaches the pair: t_hi, or the t of an
+    earlier accepted pair. The kernel's own |d'_z| >= eps test is not part
+    of it. Every pair rejected here must be one whose exact closest-hit t
+    does not lie in [t_lo, best_t): the tests hold it to that."""
+    return _interval_rejects(ws, rays, best_t)
 
 
 def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
@@ -307,7 +328,7 @@ def closest_hit_woop_kernel(ws: WoopSet, rays: torch.Tensor, mask: torch.Tensor)
     stream = torch.cuda.current_stream(dev).cuda_stream
     check(library().woop_closest(
         _ptr(rays), _ptr(ws.tbl), _ptr(ws.eps_closest), _ptr(mask), R, ws.n_chunks,
-        ws.chunk, _ptr(out_t), _ptr(out_tri), _ptr(out_u), _ptr(out_v),
+        ws.chunk, ws.n_tris, _ptr(out_t), _ptr(out_tri), _ptr(out_u), _ptr(out_v),
         ctypes.c_void_p(stream)), "woop_closest")
     LAUNCHES["closest"] += 1
     return out_t, out_tri, out_u, out_v

@@ -100,7 +100,7 @@ def test_render_runs_through_kernels(veach_cuda):
 @pytest.mark.parametrize("n", [0, 1, 127, 129, 70000])
 def test_traversal_kernels_equal_plain_versions_bitwise(stress_cuda, n):
     """Closest hit (the ordered walk) against closest_hit_ordered_plain, any
-    hit against the skip-link walk."""
+    hit against any_hit_ordered_plain and the skip-link walk."""
     from mcpt_tpu_torch.ops import traverse
     from mcpt_tpu_torch.ops.woop import F32_MAX, pack_rays
 
@@ -115,7 +115,9 @@ def test_traversal_kernels_equal_plain_versions_bitwise(stress_cuda, n):
     for a, b in zip(k, p):
         assert torch.equal(a, b)
     rays_a = pack_rays(o, d, 1e-3, t_max)
-    assert torch.equal(traverse.any_hit_traverse_kernel(ts, rays_a), traverse.any_hit_traverse_plain(ts, rays_a))
+    want = traverse.any_hit_ordered_plain(ts, rays_a)
+    assert torch.equal(want, traverse.any_hit_traverse_plain(ts, rays_a))
+    assert torch.equal(traverse.any_hit_traverse_kernel(ts, rays_a), want)
 
 
 @pytest.mark.parametrize("D", [64, 100, 128])
@@ -145,6 +147,67 @@ def test_closest_kernel_on_deep_trees_equals_plain_version_bitwise(D):
     for a, b in zip(k, p):
         assert torch.equal(a, b)
     assert bool((p[1] >= 0).any())
+
+
+@pytest.mark.parametrize("D", [64, 100, 128])
+def test_any_kernel_on_deep_trees_equals_plain_version_bitwise(D):
+    """The any-hit kernel with its 64-entry stack (D = 64) and its 128-entry
+    stack, against any_hit_ordered_plain and the skip-link walk, on
+    deep_chain's rays with finite t_max."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
+    import sys
+
+    import numpy as np
+
+    from mcpt_tpu_torch.ops import traverse
+    from mcpt_tpu_torch.ops.woop import pack_rays
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    try:
+        from torch_parity import deep_chain
+    finally:
+        sys.path.pop(0)
+    ts, o, d = deep_chain(D, np.random.default_rng(D), device="cuda")
+    t_max = torch.from_numpy(np.random.default_rng(D + 1).uniform(0.5, 4.0, o.shape[0]).astype(np.float32))
+    rays = pack_rays(torch.from_numpy(o).cuda(), torch.from_numpy(d).cuda(), 1e-3, t_max.cuda())
+    want = traverse.any_hit_ordered_plain(ts, rays)
+    assert torch.equal(want, traverse.any_hit_traverse_plain(ts, rays))
+    assert torch.equal(traverse.any_hit_traverse_kernel(ts, rays), want)
+    assert 0.2 < float(want.float().mean()) < 0.8
+
+
+@pytest.mark.parametrize("scene", ["veach", "stress"])
+def test_closest_kernel_on_camera_rays_equals_plain_version_bitwise(veach_cuda, stress_cuda, scene):
+    """The Woop closest-hit kernel, whose interval pre-test culls against the
+    running best_t, on 3,072 of the scene camera's rays and on their
+    bounce-like continuations (origins at the hits, random directions),
+    against closest_hit_woop_plain; on veach-mis and on the 5,986-triangle
+    stress scene's triangles packed into Woop chunks."""
+    from mcpt_tpu_torch.ops import woop
+    from mcpt_tpu_torch.render.camera import generate_rays
+
+    s = veach_cuda if scene == "veach" else stress_cuda[0]
+    ws = s.woop if scene == "veach" else woop.pack_woop_table(s.geom.v0, s.geom.e1, s.geom.e2)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    R = 64 * 48
+    pix = torch.randint(0, s.camera.width * s.camera.height, (R,), generator=g, device="cuda")
+    o, d = generate_rays(s.camera, torch.rand((R, 2), generator=g, device="cuda"), pix)
+    t_min = 1e-4 * s.scale
+    rays = woop.pack_rays(o, d, t_min, woop.F32_MAX)
+    mask = woop.tile_chunk_mask(rays, ws.boxes)
+    k = woop.closest_hit_woop_kernel(ws, rays, mask)
+    p = woop.closest_hit_woop_plain(ws, rays, mask)
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    hit = p[1] >= 0
+    assert float(hit.float().mean()) > 0.5
+    o2 = (o + d * p[0][:, None])[hit]
+    d2 = torch.nn.functional.normalize(torch.randn(o2.shape, generator=g, device="cuda"), dim=1)
+    rays2 = woop.pack_rays(o2, d2, t_min, woop.F32_MAX)
+    mask2 = woop.tile_chunk_mask(rays2, ws.boxes)
+    for a, b in zip(woop.closest_hit_woop_kernel(ws, rays2, mask2), woop.closest_hit_woop_plain(ws, rays2, mask2)):
+        assert torch.equal(a, b)
 
 
 def test_traversal_wrappers_route_by_device(stress_cuda):

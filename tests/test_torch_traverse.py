@@ -191,9 +191,9 @@ def test_ray_sort_order_matches_jax(stress, rng):
 
 
 def test_wrappers_sort_and_take_the_plain_walk_on_cpu(stress, rng):
-    """On CPU tensors the wrappers run the kernels' plain walks (the ordered
-    walk for closest hit, the skip-link walk for any hit; once a call, no
-    launch); sorting and scattering back changes no output."""
+    """On CPU tensors the wrappers run the kernels' plain walks (the walks
+    of the child-pair table; once a call, no launch); sorting and
+    scattering back changes no output."""
     from mcpt_tpu_torch.ops import traverse as tv
 
     js, ts = stress
@@ -205,7 +205,7 @@ def test_wrappers_sort_and_take_the_plain_walk_on_cpu(stress, rng):
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     ga = tv.any_hit_traverse(ts.trav, torch.from_numpy(o), torch.from_numpy(d), t_min, torch.from_numpy(t_max))
-    assert torch.equal(ga, tv.any_hit_traverse_plain(ts.trav, _pack(o, d, t_min, t_max)))
+    assert torch.equal(ga, tv.any_hit_ordered_plain(ts.trav, _pack(o, d, t_min, t_max)))
     assert tv.PLAIN_CALLS == {k: plain[k] + 2 for k in plain} and tv.LAUNCHES == launches
     for fn in (tv.closest_hit_traverse_kernel, tv.any_hit_traverse_kernel):
         with pytest.raises(ValueError, match="CUDA"):
@@ -514,3 +514,119 @@ def test_ordered_walk_on_deep_trees(D):
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     assert 0.2 < float((b[1] >= 0).float().mean()) < 0.8
+
+
+ANY_SEEDS = [30, 31]
+
+
+def _grazing_rays(ts, rng, R):
+    """Rays aimed at a point of a random triangle, nearly in its plane (the
+    normal component 1e-6 to 1e-2 of the direction), from 0.1 to 3 units
+    away, and their t_max a little short of the point or past it."""
+    tri = ts.tris.numpy().astype(np.float64)[rng.integers(0, ts.n_tris, R)]
+    v0, e1, e2 = tri[:, 0:3], tri[:, 4:7], tri[:, 8:11]
+    a, b = rng.random((2, R))
+    target = v0 + (a * (1 - b))[:, None] * e1 + (a * b)[:, None] * e2
+    n = np.cross(e1, e2)
+    n /= np.linalg.norm(n, axis=1, keepdims=True)
+    d = rng.normal(size=(R, 3))
+    d -= (d * n).sum(1, keepdims=True) * n
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d += n * (10.0 ** rng.uniform(-6, -2, (R, 1))) * rng.choice([-1.0, 1.0], (R, 1))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    dist = rng.uniform(0.1, 3.0, R)
+    o = target - d * dist[:, None]
+    t_max = dist * np.where(rng.random(R) < 0.5, 1 - 1e-3, 1.5)
+    return o.astype(np.float32), d.astype(np.float32), t_max.astype(np.float32)
+
+
+def _shadow_rays(js, ts, rng, R):
+    """Camera rays' closest hits (the port's walk) joined to points on the
+    light, t_max short of the light by 1e-3 of the distance, as the
+    integrator's NEE rays are; the camera rays that miss are left out."""
+    from mcpt_tpu_torch.ops.traverse import closest_hit_ordered_plain
+    from mcpt_tpu_torch.render.integrator import pack_light_table, sample_light_point
+
+    o, d = _rays(js, rng, R)
+    o, d = o[:512], d[:512]
+    t, tri, _, _ = closest_hit_ordered_plain(ts.trav, _pack(o, d, 1e-4 * js.scale, F32_MAX))
+    hit = to_numpy(tri) >= 0
+    pts = (o + d * to_numpy(t)[:, None])[hit]
+    u = torch.from_numpy(rng.random((pts.shape[0], 3)).astype(np.float32))
+    lp = to_numpy(sample_light_point(pack_light_table(ts), ts.num_lights, u[:, 0], u[:, 1], u[:, 2])[0])
+    sv = lp - pts
+    dist = np.linalg.norm(sv, axis=1)
+    return pts.astype(np.float32), (sv / dist[:, None]).astype(np.float32), (dist * (1 - 1e-3)).astype(np.float32)
+
+
+@pytest.mark.parametrize("which", ["random", "grazing", "shadow"])
+def test_any_ordered_walk_matches_skip_link_and_jax(stress, which):
+    """The any-hit kernel's walk of the child-pair table
+    (any_hit_ordered_plain) gives the skip-link walk's answer on every
+    ray, and mcpt_tpu's any_hit_bvh's at
+    test_plain_any_matches_jax_bvh_walk's tolerance; on random rays (box
+    faces included), rays grazing a triangle's plane, and shadow rays from
+    camera hits to the light. It visits fewer inner rows than the skip-link
+    walk visits nodes. On grazing rays the |det| >= eps threshold and the
+    edges flip with XLA's summation order on about 1 % of rays; there every
+    ray on which the port's walk and mcpt_tpu's differ must be one on which
+    the two packages' dense waves (any_hit_bruteforce) differ too, so the
+    walks themselves add no difference."""
+    from mcpt_tpu.ops.intersect import any_hit_bruteforce as jax_dense
+    from mcpt_tpu.ops.traverse import any_hit_bvh
+    from mcpt_tpu_torch.ops import traverse as tv
+    from mcpt_tpu_torch.ops.intersect import any_hit_bruteforce
+
+    js, ts = stress
+    t_min = 1e-4 * js.scale
+    for seed in ANY_SEEDS:
+        rng = np.random.default_rng(seed)
+        if which == "random":
+            o, d = _rays(js, rng, 2048)
+            t_max = (js.scale * rng.uniform(0.0, 0.4, 2048)).astype(np.float32)
+        elif which == "grazing":
+            o, d, t_max = _grazing_rays(ts.trav, rng, 2048)
+        else:
+            o, d, t_max = _shadow_rays(js, ts, rng, 1024)
+        rays = _pack(o, d, t_min, t_max)
+        c_skip, c_near = {}, {}
+        want = tv.any_hit_traverse_plain(ts.trav, rays, c_skip)
+        near = tv.any_hit_ordered_plain(ts.trav, rays, c_near)
+        assert torch.equal(near, want)
+        jargs = (js, jnp.asarray(o), jnp.asarray(d))
+        ref = np.asarray(any_hit_bvh(*jargs, t_min=t_min, t_max=jnp.asarray(t_max)))
+        differ = to_numpy(near) != ref
+        if which == "grazing":
+            dense = to_numpy(any_hit_bruteforce(ts, torch.from_numpy(o), torch.from_numpy(d), t_min=t_min,
+                                                t_max=torch.from_numpy(t_max)))
+            jdense = np.asarray(jax_dense(*jargs, t_min=t_min, t_max=jnp.asarray(t_max)))
+            assert differ.mean() <= 0.02 and not (differ & (dense == jdense)).any()
+        else:
+            assert differ.mean() <= 0.001
+        assert 0.005 < ref.mean() < 0.995, ref.mean()
+        assert 0 < c_near["pair_visits"] < c_skip["node_visits"] and c_near["tri_tests"] > 0
+
+
+@pytest.mark.parametrize("case", ["flat", "deep64", "deep100", "deep128"])
+def test_any_ordered_walk_on_flat_box_and_deep_trees(case):
+    """The any-hit walk of the child-pair table against the skip-link walk
+    where they are easiest to part: the flat box reached at exactly t_max
+    (still a miss, as in mcpt_tpu's any_hit_bvh; a hit just past it), and
+    chains up to STACK_SIZE deep (tests/torch_parity.deep_chain), whose
+    walks fill stacks beyond 64 entries."""
+    from mcpt_tpu_torch.ops import traverse as tv
+
+    if case == "flat":
+        ts = _trav_of([[-1.0, -1.0, 0.0]], [[2.0, 0.0, 0.0]], [[0.0, 2.0, 0.0]])
+        o, d = np.array([[0.0, 0.0, -1.0]] * 2, np.float32), np.array([[0.0, 0.0, 1.0]] * 2, np.float32)
+        rays = _pack(o, d, 1e-4, np.array([1.0, 1.0005], np.float32))
+        want = torch.tensor([False, True])
+    else:
+        D = int(case[4:])
+        ts, o, d = deep_chain(D, np.random.default_rng(D))
+        assert ts.depth == D <= tv.STACK_SIZE
+        rays = _pack(o, d, 1e-3, np.random.default_rng(D + 1).uniform(0.5, 4.0, o.shape[0]).astype(np.float32))
+        want = tv.any_hit_traverse_plain(ts, rays)
+        assert 0.2 < float(want.float().mean()) < 0.8
+    assert torch.equal(tv.any_hit_traverse_plain(ts, rays), want)
+    assert torch.equal(tv.any_hit_ordered_plain(ts, rays), want)

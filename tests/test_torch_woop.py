@@ -354,3 +354,72 @@ def test_any_pretest_never_rejects_an_accepted_pair(veach_scene, which):
             assert not bool(any_pretest_rejects(ws, rays).any())
     assert accepted > 500 and at_lo > 20 and at_hi > 20, (accepted, at_lo, at_hi)
     assert rejected > 0
+
+
+def _exact_closest(ws, rays):
+    """(accept, t) [R, Tp] of the exact closest-hit predicate of every pair
+    as closest_hit_woop_plain computes it, before the running best (no chunk
+    mask): t in [t_lo, t_hi), u, v, 1 - u - v >= 0."""
+    from mcpt_tpu_torch.ops import woop
+
+    acc, ts = [], []
+    for c in range(ws.n_chunks):
+        t, u, v, ok = woop._project(rays, ws.tbl, ws.eps_closest, c, ws.chunk)
+        acc.append(ok & (t >= rays[:, 3:4]) & (t < rays[:, 7:8]) & (u >= 0) & (v >= 0) & (1.0 - u - v >= 0))
+        ts.append(t)
+    return torch.cat(acc, dim=1), torch.cat(ts, dim=1)
+
+
+@pytest.mark.parametrize("which", ["veach", "soup"])
+def test_closest_pretest_never_rejects_a_winning_pair(veach_scene, which):
+    """The closest-hit kernel's division-free interval pre-test against
+    [t_lo, best_t] (ops/woop.py mirror of csrc/woop.cu) rejects no pair
+    that the exact closest predicate accepts below the given best_t, on
+    test_any_pretest_never_rejects_an_accepted_pair's adversarial rays
+    (aimed at vertices and edges, grazing at |d'_z| ~ eps, hits at exactly
+    t_lo or t_hi), with best_t at t_hi, at the t of the ray's farthest
+    accepted pair (a hit at exactly best_t), one ulp above it (a hit one ulp
+    below best_t, which must win) and anywhere in [t_lo, t_hi]. It rejects no pair of a ray with
+    t_lo = 0 (not an ordinary ray)."""
+    from mcpt_tpu_torch.ops.woop import closest_pretest_rejects, pack_woop_table
+
+    at_lo = at_best = below_best = winners = rejected = 0
+    for seed in PRETEST_SEEDS:
+        rng = np.random.default_rng(seed)
+        if which == "veach":
+            g = veach_scene.geom
+            v0, e1, e2 = (np.asarray(x, np.float32) for x in (g.v0, g.e1, g.e2))
+        else:
+            T = 600
+            size = 10.0 ** rng.uniform(-3, 2, (T, 1))
+            v0 = rng.uniform(-50, 50, (T, 3)).astype(np.float32)
+            e1 = (rng.normal(size=(T, 3)) * size).astype(np.float32)
+            e2 = (rng.normal(size=(T, 3)) * size).astype(np.float32)
+        ws = pack_woop_table(*(torch.from_numpy(np.array(x)) for x in (v0, e1, e2)))
+        for _ in range(2):
+            R = 512
+            rays = _adversarial_rays(rng, ws, v0, e1, e2, R)
+            acc, t = _exact_closest(ws, rays)
+            # the t of the ray's farthest accepted pair (-1 without one)
+            t_aim = torch.where(acc, t, -1.0).amax(dim=1)
+            lo, hi = rays[:, 3], rays[:, 7]
+            mode = torch.from_numpy(rng.integers(0, 4, R))
+            anywhere = lo + (hi - lo) * torch.from_numpy(rng.random(R).astype(np.float32))
+            has = t_aim >= lo
+            best = torch.where(mode == 0, hi, anywhere)
+            best = torch.where(has & (mode == 1), t_aim, best)
+            best = torch.where(has & (mode == 2), torch.minimum(torch.nextafter(t_aim, hi), hi), best)
+            best = best[:, None]
+            win = acc & (t < best)
+            rej = closest_pretest_rejects(ws, rays, best)
+            bad = rej & win
+            assert not bool(bad.any()), torch.nonzero(bad)[:5]
+            rejected += int(rej.sum())
+            winners += int(win.sum())
+            at_lo += int((win & (t == rays[:, 3:4])).sum())
+            at_best += int((acc & (t == best)).sum())
+            below_best += int((win & (torch.nextafter(t, torch.tensor(np.inf)) == best)).sum())
+            rays[:, 3] = 0.0
+            assert not bool(closest_pretest_rejects(ws, rays, best).any())
+    assert winners > 500 and at_lo > 20 and at_best > 20 and below_best > 20, (winners, at_lo, at_best, below_best)
+    assert rejected > 0

@@ -1,28 +1,36 @@
 #!/usr/bin/env python3
-"""Time one checkout's closest-hit BVH kernel on a saved ray batch.
+"""Time one checkout's kernel on saved ray batches.
 
-    python3 chip_smoke.py --save-closest-batch /tmp/batch.pt
-    python3 time_closest_batch.py /tmp/batch.pt [--root CHECKOUT]
+    python3 chip_smoke.py --save-batches /tmp/batches
+    python3 time_closest_batch.py /tmp/batches/traverse_closest_third.pt [--root CHECKOUT]
+    python3 time_closest_batch.py --kernel traverse_any /tmp/batches/traverse_any_third.pt ...
+    python3 time_closest_batch.py --kernel woop_closest /tmp/batches/woop_closest_camera.pt ...
 
-chip_smoke.py saves the rays of the bathroom-stress pass's third closest-hit
-launch (phase 8), sorted as the wrapper launches them. This script builds
-bathroom-stress in memory with the mcpt_tpu_torch and chip_smoke.py of
-CHECKOUT (this one by default, or an unpacked earlier commit of the repo),
-runs that checkout's traverse.closest_hit_traverse_kernel on the rays, and
-prints its time (CUDA events, median of 7 runs after a warm-up, as
-chip_smoke.py times), its hits, and a checksum of its triangle ids, so
-that the kernels of two checkouts are compared on one batch. Needs one
-CUDA card; exits 1 without one.
+chip_smoke.py saves the packed rays of the batches it times (--save-batches
+DIR; --save-closest-batch PATH saves the bathroom pass's third closest-hit
+batch alone), in the order the wrappers launch them. This script loads the
+scene with the mcpt_tpu_torch and chip_smoke.py of CHECKOUT (this one by
+default, or an unpacked earlier commit of the repo): bathroom-stress, built
+in memory, for the traversal kernels, and scenes/veach-mis.obj for
+woop_closest (whose chunk mask it computes again from the rays). Then it
+runs that checkout's kernel (--kernel: traverse_closest, the default,
+traverse_any or woop_closest) on each batch and prints its time (CUDA
+events, median of 7 runs after a warm-up, as chip_smoke.py times), its hits
+and a checksum of its answer, so that the kernels of two checkouts are
+compared on one batch. Needs one CUDA card; exits 1 without one.
 """
 import argparse
 import os
 import sys
 import time
 
+KERNELS = ("traverse_closest", "traverse_any", "woop_closest")
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("rays", help="a tensor saved by chip_smoke.py --save-closest-batch")
+    ap.add_argument("rays", nargs="+", help="tensors saved by chip_smoke.py --save-batches or --save-closest-batch")
+    ap.add_argument("--kernel", choices=KERNELS, default="traverse_closest", help="the kernel timed")
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)),
                     help="the checkout whose kernel is timed")
     args = ap.parse_args()
@@ -36,22 +44,39 @@ def main() -> int:
     import chip_smoke
     from mcpt_tpu_torch.ops import _build
     from mcpt_tpu_torch.ops import traverse as tv
+    from mcpt_tpu_torch.ops import woop
 
-    for mod in (chip_smoke, tv):
+    for mod in (chip_smoke, tv, woop):
         if not os.path.abspath(mod.__file__).startswith(root + os.sep):
             raise RuntimeError(f"{mod.__name__} came from {mod.__file__}, not from {root}")
     _build.library()
     t0 = time.perf_counter()
-    (scene,) = chip_smoke.stress_scene(chip_smoke.STRESS_TRIS, 0, ("cuda",))
-    print(f"bathroom-stress: {scene.num_tris} triangles, built in {time.perf_counter() - t0:.2f} s")
-    rays = torch.load(args.rays).cuda().contiguous()
-    t, tri, _, _ = tv.closest_hit_traverse_kernel(scene.trav, rays)
+    if args.kernel == "woop_closest":
+        from mcpt_tpu_torch.io.obj import load_scene
+
+        scene = load_scene(os.path.join(root, "scenes", "veach-mis.obj"), device="cuda")
+        ws = scene.woop
+
+        def run(rays, mask):
+            return woop.closest_hit_woop_kernel(ws, rays, mask)
+    else:
+        (scene,) = chip_smoke.stress_scene(chip_smoke.STRESS_TRIS, 0, ("cuda",))
+        kern = tv.closest_hit_traverse_kernel if args.kernel == "traverse_closest" else tv.any_hit_traverse_kernel
+
+        def run(rays, mask):
+            return kern(scene.trav, rays)
     torch.cuda.synchronize()
-    ms = chip_smoke.cuda_time_ms(lambda: tv.closest_hit_traverse_kernel(scene.trav, rays))
-    ids = tri.long()
-    print(f"traverse_closest of {root}: {rays.shape[0]} rays, {int((ids >= 0).sum())} hits, "
-          f"id checksum {int((ids * torch.arange(1, ids.shape[0] + 1, device=ids.device)).sum())}, "
-          f"kernel {ms:.4f} ms")
+    print(f"scene: {scene.num_tris} triangles, loaded in {time.perf_counter() - t0:.2f} s")
+    for path in args.rays:
+        rays = torch.load(path).cuda().contiguous()
+        mask = woop.tile_chunk_mask(rays, ws.boxes) if args.kernel == "woop_closest" else None
+        out = run(rays, mask)
+        torch.cuda.synchronize()
+        ms = chip_smoke.cuda_time_ms(lambda: run(rays, mask))
+        ids = (out[1] if isinstance(out, tuple) else torch.where(out, 0, -1)).long()
+        pos = torch.arange(1, ids.shape[0] + 1, device=ids.device)
+        print(f"{args.kernel} of {root} on {os.path.basename(path)}: {rays.shape[0]} rays, "
+              f"{int((ids >= 0).sum())} hits, checksum {int((ids * pos).sum())}, kernel {ms:.4f} ms")
     return 0
 
 
