@@ -7,7 +7,7 @@ Phases, each printing its wall seconds:
   1. the device, and the card's name and power limit from nvidia-smi;
   2. one nvcc build of every kernel under mcpt_tpu_torch/csrc, and the g++
      build of the host BVH builder (csrc/host), with the -Xptxas -v lines
-     of the four Woop and traversal kernels;
+     of the Woop, traversal and select kernels;
   3. the Woop kernels against their plain torch versions on the card, on
      veach-mis rays at the main path's shapes, with times (CUDA events) and
      the share of pairs their interval pre-tests reject;
@@ -33,8 +33,11 @@ Phases, each printing its wall seconds:
  11. the schedule kernels against their plain walks on phase 7's camera and
      shadow rays and on a scrambled batch, with the pre-pass and the exact
      fallback, against traverse.cu, with times;
- 12. the select kernels against their plain walks on phase 7's batches,
-     against traverse.cu, with times;
+ 12. the select kernels against their plain walks (per-ray walks of each
+     staged treelet) on phase 7's batches, against the reference walk
+     (every triangle of every treelet a tile visits) and traverse.cu, with
+     both walks' counts, and against traverse.cu on phase 8's third
+     batches, with times;
  13. the bathroom main path of phase 8 through the select kernels
      (MCPT_TREELET_SELECT=smem dispatch), its film against phase 8's;
  14. phase 9's render through the select kernels, card against CPU.
@@ -47,7 +50,9 @@ batch to PATH; --save-batches DIR saves, for time_closest_batch.py, the
 rays of the batches the Woop closest-hit and the traversal kernels are
 timed on: woop_closest_camera.pt (phase 3), woop_closest_third.pt (phase
 4), traverse_any_shadow.pt (phase 7, sorted), traverse_closest_third.pt
-and traverse_any_third.pt (phase 8).
+and traverse_any_third.pt (phase 8), and the select kernels' tiles
+select_closest_camera.pt, select_any_shadow.pt, select_closest_third.pt
+and select_any_third.pt (phase 12).
 """
 from __future__ import annotations
 
@@ -169,7 +174,7 @@ def build_kernels():
     if info:
         print(f"nvcc: {info['cmd']}\n{info['output'].strip()}")
         for name in ("woop_closest_kernel", "woop_any_kernel", "traverse_closest_kernel",
-                     "traverse_any_kernel"):
+                     "traverse_any_kernel", "select_kernel"):
             for line in _ptxas_usage(info["output"], name):
                 print(f"ptxas {name}: {line}")
     t0 = time.perf_counter()
@@ -883,7 +888,7 @@ def bathroom_main_path(scene):
     ms = cuda_time_ms(lambda: tv.any_hit_traverse_kernel(ts, rays))
     bound_ms, by = _traversal_bound("any", counts, rays, ts)
     print(f"traverse_any (main path, third launch): kernel {ms:.4f} ms, bound {bound_ms:.4f} ms ({by})")
-    return out
+    return out, {"closest": store["args"][1], "any": rays}
 
 
 # ---------------------------------------------------------------------------
@@ -893,8 +898,8 @@ def bathroom_main_path(scene):
 @phase("10 treelet layout")
 def treelet_layout(scene):
     """Build bathroom-stress's treelet layout again from its BVH, timed; it
-    must equal the one attach_bvh built and have 136 superblocks, 17,408
-    rows and 11,471 real treelets."""
+    must equal the one attach_bvh built, sub-BVH arrays included, and have
+    136 superblocks, 17,408 rows and 11,471 real treelets."""
     import torch
 
     from mcpt_tpu_torch.ops.treelets import build_treelets
@@ -905,9 +910,11 @@ def treelet_layout(scene):
     sec = time.perf_counter() - t0
     real = int((tl.row_count > 0).sum())
     print(f"treelets: built in {sec:.3f} s; NS {tl.ns}, NSp {tl.nsp}, G {tl.g}, real rows {real} "
-          f"({scene.num_tris / real:.1f} triangles a treelet, c {tl.c}, s_b {tl.s_b})")
-    same = all(torch.equal(torch.as_tensor(getattr(tl, k)), getattr(scene.treelets, k).cpu())
-               for k in ("sb_box", "blk_box", "row_first", "row_count"))
+          f"({scene.num_tris / real:.1f} triangles a treelet, c {tl.c}, s_b {tl.s_b}); sub-BVHs "
+          f"{int(tl.row_pair_count.sum())} child-pair rows, tdepth {tl.tdepth}")
+    same = tl.tdepth == scene.treelets.tdepth and all(
+        torch.equal(torch.as_tensor(getattr(tl, k)), getattr(scene.treelets, k).cpu())
+        for k in ("sb_box", "blk_box", "row_first", "row_count", "row_pair_first", "row_pair_count", "row_root"))
     if (tl.ns, tl.g, real) != (136, 17_408, 11_471) or not same:
         raise AssertionError(f"unexpected layout: NS {tl.ns}, G {tl.g}, real {real}, same as the scene's {same}")
 
@@ -974,9 +981,9 @@ def _packet_bound(kind, counts, rays, scene, extra_bytes):
     return 1e3 * max(ops / H100_FP32_OPS, nbytes / H100_BYTES)
 
 
-def _check_route(name, label, n_trav):
+def _check_route(name, label, n_trav, other="traverse.cu"):
     if n_trav > ROUTE_DIFF_MAX:
-        raise AssertionError(f"{name} answers differently from traverse.cu on {n_trav} rays of the {label} "
+        raise AssertionError(f"{name} answers differently from {other} on {n_trav} rays of the {label} "
                              f"batch (at most {ROUTE_DIFF_MAX} may)")
 
 
@@ -1057,39 +1064,84 @@ def check_schedule(scene, batches, walks):
     return out
 
 
+def _walk_bound(kind, counts, rays, scene):
+    """Least time (ms) of the select kernels' own algorithm on this batch:
+    its child-pair row visits, triangle tests and entry keys times their
+    f32 operations over the FP32 rate, or its inputs read once and outputs
+    written once over the memory rate, whichever is longer."""
+    ops = (counts["pair_visits"] * TRAV_NODE_OPS[kind] + counts["tri_tests"] * TREELET_TRI_OPS[kind]
+           + counts["box_keys"] * TREELET_KEY_OPS)
+    tl, ts = scene.treelets, scene.trav
+    nbytes = (rays.shape[0] * (32 + (16 if kind == "closest" else 1)) + 4 * (ts.tris.numel() + ts.pairs.numel())
+              + 4 * (tl.sb_box.numel() + tl.blk_box.numel() + 5 * tl.row_first.numel()))
+    return 1e3 * max(ops / H100_FP32_OPS, nbytes / H100_BYTES)
+
+
 @phase("12 select kernels vs plain")
-def check_select(scene, batches, walks):
-    """The select kernels against their plain walks on the camera and shadow
-    batches of phase 7 (0 rays may differ, t/u/v bitwise), against
-    traverse.cu (at most ROUTE_DIFF_MAX rays may differ), and their times;
-    bound_ms as in phase 11."""
+def check_select(scene, batches, walks, thirds):
+    """The select kernels on the camera and shadow batches of phase 7:
+    against their plain walks (0 rays may differ, t/u/v bitwise), the
+    reference walk (every tested ray of a tile against every triangle of
+    every treelet it visits) and traverse.cu (at most ROUTE_DIFF_MAX rays
+    may differ each, examples printed); both walks' counts, and on camera
+    rays the walk must make at most a fifth of the reference walk's
+    triangle tests. On phase 8's third closest and third any-hit batches
+    against traverse.cu. Times each kernel on each batch; bound_ms as in
+    phase 11, beside the bounds of both walks' own counts."""
     from mcpt_tpu_torch.ops import select as SL
     from mcpt_tpu_torch.ops import traverse as tv
 
     tl, ts = scene.treelets, scene.trav
+    print(f"treelets: tdepth {tl.tdepth} (the kernels' stack holds {16 if tl.tdepth <= 16 else tv.STACK_SIZE}), "
+          f"child-pair rows a treelet p50 {float(tl.row_pair_count[tl.row_count > 0].float().quantile(0.5)):.0f} "
+          f"max {int(tl.row_pair_count.max())}")
     out = []
-    for label, kind in (("camera", "closest"), ("shadow", "any")):
-        srt = _sorted_tiles(scene, batches[kind])
+    cases = (("camera", "closest", batches["closest"]), ("shadow", "any", batches["any"]),
+             ("main path, third iteration", "closest", thirds["closest"]),
+             ("main path, third launch", "any", thirds["any"]))
+    for label, kind, rays in cases:
+        srt = _sorted_tiles(scene, rays)
+        first = label in ("camera", "shadow")
+        if SAVE_BATCHES:
+            _save(srt, f"select_{kind}_{label if first else 'third'}.pt")
         kern = getattr(SL, f"{kind}_hit_select_kernel")
-        p, counts, plain_ms = _walk_plain(getattr(SL, f"{kind}_hit_select_plain"), tl, ts.tris, srt)
-        k = kern(tl, ts.tris, srt)
-        n_diff, bitwise, err = _agreement(kind, k, p)
+        k = kern(tl, ts, srt)
         want = getattr(tv, f"{kind}_hit_traverse_kernel")(ts, srt)
         n_trav = _agreement(kind, k, want)[0]
-        ms = cuda_time_ms(lambda: kern(tl, ts.tris, srt))
+        ms = cuda_time_ms(lambda: kern(tl, ts, srt))
+        print(f"select_{kind} ({label}): {srt.shape[0]} rays; kernel {ms:.4f} ms; {n_trav} rays differ from "
+              f"traverse.cu{' e.g. ' + str(_examples(kind, k, want)) if n_trav else ''}")
+        _check_route(f"select_{kind}", label, n_trav)
+        if not first:
+            continue
+        p, counts, plain_ms = _walk_plain(getattr(SL, f"{kind}_hit_select_plain"), tl, ts, srt)
+        ref, ref_counts, ref_ms = _walk_plain(getattr(SL, f"{kind}_hit_select_packet_plain"), tl, ts, srt)
+        n_diff, bitwise, err = _agreement(kind, k, p)
+        n_ref = _agreement(kind, k, ref)[0]
+        tested = int(((srt[:, 3] < srt[:, 7]) & (srt[:, 0:3].abs() < 1e29).all(dim=1)).sum())
+        per = max(tested, 1)
         bound_ms, by = _traversal_bound(kind, walks[kind], srt, ts)
-        packet_ms = _packet_bound(kind, counts, srt, scene, 4 * (tl.sb_box.numel() + tl.blk_box.numel()))
-        print(f"select_{kind} ({label}): {srt.shape[0]} rays; {n_diff} rays differ from the plain walk "
-              f"on every tile (bitwise {bitwise}, max abs err {err:.3g}); {n_trav} differ from traverse.cu"
-              f"{' e.g. ' + str(_examples(kind, k, want)) if n_trav else ''}; {counts.get('treelet_visits', 0)} "
-              f"treelet visits, {counts.get('tri_tests', 0)} triangle tests, {counts.get('box_keys', 0)} entry keys")
-        print(f"select_{kind} ({label}): kernel {ms:.4f} ms, plain walk {plain_ms:.1f} ms (one run), "
-              f"bound {bound_ms:.4f} ms ({by}; the BVH walk's tests), packet-test bound {packet_ms:.4f} ms "
-              f"(this kernel's tests)")
+        print(f"select_{kind} ({label}): {tested} tested rays; {n_diff} rays differ from the plain walk (bitwise "
+              f"{bitwise}, max abs err {err:.3g}); {n_ref} differ from the reference walk"
+              f"{' e.g. ' + str(_examples(kind, k, ref)) if n_ref else ''}")
+        print(f"select_{kind} ({label}): walk {counts['treelet_visits']} treelet visits, {counts['pair_visits']} "
+              f"child-pair visits ({counts['pair_visits'] / per:.2f} a tested ray), {counts['tri_tests']} triangle "
+              f"tests ({counts['tri_tests'] / per:.2f}), {counts['box_keys']} entry keys "
+              f"({counts['box_keys'] / per:.2f}); reference walk {ref_counts['treelet_visits']} treelet visits, "
+              f"{ref_counts['tri_tests']} triangle tests ({ref_counts['tri_tests'] / per:.2f}), "
+              f"{ref_counts['box_keys']} entry keys ({ref_counts['box_keys'] / per:.2f})")
+        print(f"select_{kind} ({label}): plain walk {plain_ms:.1f} ms, reference walk {ref_ms:.1f} ms (one run each); "
+              f"bound {bound_ms:.4f} ms ({by}; the BVH walk's tests), walk bound "
+              f"{_walk_bound(kind, counts, srt, scene):.4f} ms (this kernel's counts), packet-test bound "
+              f"{_packet_bound(kind, ref_counts, srt, scene, 4 * (tl.sb_box.numel() + tl.blk_box.numel())):.4f}"
+              f" ms (the reference walk's)")
         if n_diff or not bitwise:
             raise AssertionError(f"select_{kind} kernel differs from its plain walk on {n_diff} rays "
-                                 f"(bitwise {bitwise})")
-        _check_route(f"select_{kind}", label, n_trav)
+                                 f"(bitwise {bitwise}) of the {label} batch")
+        _check_route(f"select_{kind}", label, n_ref, "the reference walk")
+        if label == "camera" and 5 * counts["tri_tests"] > ref_counts["tri_tests"]:
+            raise AssertionError(f"select_closest makes {counts['tri_tests']} triangle tests on camera rays, more "
+                                 f"than a fifth of the reference walk's {ref_counts['tri_tests']}")
         out.append({"name": f"select_{kind}", "route": "cuda", "source": "mcpt_tpu_torch/csrc/treelet.cu",
                     "replaces": "mcpt_tpu/ops/pallas/select.py:" + ("80" if kind == "closest" else "258"),
                     "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -1158,7 +1210,7 @@ def small_select_reference():
 
 # With --save-closest-batch PATH, phase 8 saves the rays of the bathroom
 # pass's third closest-hit launch there; with --save-batches DIR, phases 3,
-# 4, 7 and 8 save their timed batches there (for time_closest_batch.py).
+# 4, 7, 8 and 12 save their timed batches there (for time_closest_batch.py).
 SAVE_CLOSEST_BATCH = None
 SAVE_BATCHES = None
 
@@ -1171,7 +1223,7 @@ def main() -> int:
     global SAVE_CLOSEST_BATCH, SAVE_BATCHES
     ap = argparse.ArgumentParser(description="Drive the mcpt_tpu_torch port once on one CUDA card and check it.")
     ap.add_argument("--save-closest-batch", metavar="PATH", help="save phase 8's third closest-hit batch")
-    ap.add_argument("--save-batches", metavar="DIR", help="save the timed batches of phases 3, 4, 7 and 8")
+    ap.add_argument("--save-batches", metavar="DIR", help="save the timed batches of phases 3, 4, 7, 8 and 12")
     args = ap.parse_args()
     if args.save_closest_batch:
         SAVE_CLOSEST_BATCH = os.path.abspath(args.save_closest_batch)
@@ -1200,12 +1252,12 @@ def main() -> int:
     bath = bathroom_scene()
     trav_kernels, batches, walks = check_traversal(bath)
     kernels += trav_kernels
-    launches8, film8 = bathroom_main_path(bath)
+    (launches8, film8), thirds = bathroom_main_path(bath)
     launches.update({k: v for k, v in launches8.items() if k.startswith(("traverse_", "schedule_"))})
     treelet_layout(bath)
     kernels += check_schedule(bath, batches, walks)
-    kernels += check_select(bath, batches, walks)
-    del batches
+    kernels += check_select(bath, batches, walks, thirds)
+    del batches, thirds
     launches.update({k: v for k, v in bathroom_select_path(bath, film8).items() if k.startswith("select_")})
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -45,8 +45,8 @@ SIGNATURES = {
     "traverse_any": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "schedule_closest": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "schedule_any": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
-    "select_closest": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
-    "select_any": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "select_closest": [_P] * 10 + [_I] * 7 + [_P] * 5,
+    "select_any": [_P] * 10 + [_I] * 7 + [_P] * 2,
 }
 
 _lib = None

@@ -20,14 +20,26 @@ of RAY_TILE sorted rays (one CUDA block, or the plain torch version here):
      its lower bound below that ray's best_t; any: the ray not occluded);
   3. inside a superblock, the column-min over the rays of the treelet keys
      (slab over [t_lo, min(t_hi, best_t)] for closest hit; not-occluded
-     rays for any hit), then the slots in slot order: test the tile against
-     each treelet whose key is not KEY_MISS and (closest) whose lower bound
-     is below the cutoff, which is refreshed after every treelet (the TPU
-     kernel refreshed it every CUT_REFRESH = 4 pairs, a scalar-core round
-     trip there; one block reduction here).
-The treelet test is ops/schedule.visit_treelet's, with the accept predicates
-and the (min t, lowest id) rule of ops/intersect.py, so the kernels equal
-their plain versions, and the BVH traversal's results, bit for bit.
+     rays for any hit), and the live slots in ascending key (front to
+     back). Closest hit stops at the first slot whose lower bound is >= the
+     cutoff, which is refreshed after every treelet (the TPU kernel walked
+     slot order, as its scalar core could not sort, and refreshed the
+     cutoff every CUT_REFRESH = 4 pairs);
+  4. for each slot visited, every tested ray whose own key for the treelet
+     is live (its slab test of the treelet's box over [t_lo, min(t_hi,
+     best_t)] with its current best_t, and for closest hit a lower bound
+     below its best_t bits; any hit: not occluded) walks the treelet's
+     sub-BVH from its root, as the BVH traversal walks the whole tree
+     (ops/traverse.ordered_closest_walk / ordered_any_walk over the
+     treelet's rows of the child-pair table and its triangles, refs made
+     local). The TPU kernel tested every ray of the tile against every
+     triangle of the treelet instead; that reference walk stays here as
+     closest_hit_select_packet_plain / any_hit_select_packet_plain.
+The accept predicates and the (min t, lowest id) rule are those of
+ops/intersect.py and traverse.cu, so the kernels equal their plain
+versions bit for bit. A ray's walk culls a box at its running best_t, as
+the BVH walk does, so both can differ from the reference walk only in the
+one-ulp box-face case of ROADMAP queue 3 item 4.
 """
 from __future__ import annotations
 
@@ -37,8 +49,8 @@ from typing import Optional
 import torch
 
 from mcpt_tpu_torch.ops import schedule as sc
+from mcpt_tpu_torch.ops import traverse as tv
 from mcpt_tpu_torch.ops.intersect import F32_MAX, T_MIN
-from mcpt_tpu_torch.ops.traverse import FAR_FUDGE
 from mcpt_tpu_torch.ops.woop import _ptr
 
 RAY_TILE = sc.RAY_TILE
@@ -62,7 +74,7 @@ def entry_keys(box, o, inv, t_lo, t_hi, bits, active):
         ta = (box[:, None, a, :] - oa) * ia
         tb = (box[:, None, 3 + a, :] - oa) * ia
         near = torch.maximum(near, torch.minimum(ta, tb))
-        far = torch.minimum(far, torch.maximum(ta, tb) * FAR_FUDGE)
+        far = torch.minimum(far, torch.maximum(ta, tb) * tv.FAR_FUDGE)
     hit = (box[:, None, 6, :] > 0.0) & (torch.maximum(t_lo[..., None], near) < torch.minimum(t_hi[..., None], far))
     entry = torch.where(near > 0, near, 0.0)  # +0 for -0: the bits are the key
     ids = torch.arange(box.shape[2], dtype=torch.int32, device=o.device)
@@ -74,37 +86,67 @@ def _lb(key, bits):
     return (key >> bits) << bits
 
 
-def _walk(tl, tris, rays, closest: bool, counts: Optional[dict]):
+def _visit_order(tcol, ascending: bool):
+    """Each tile's live slots [n, s_b] in visiting order (ascending key, or
+    ascending slot), KEY_MISS slots after them."""
+    if ascending:  # live keys differ in their low bits, KEY_MISS is the largest
+        return torch.argsort(tcol, dim=1, stable=True)
+    return torch.argsort((tcol == KEY_MISS).to(torch.int32), dim=1, stable=True)
+
+
+def _walk(tl, ts, rays, closest: bool, counts: Optional[dict], reference: bool):
+    """The select loop nest for every tile of packed rays (module
+    docstring). The kernels' walk takes a superblock's live slots in
+    ascending key, the first one past the cutoff ending it, and each visit
+    runs the per-ray walks (_sub_walks); the reference walk takes them in
+    slot order, skipping those past the cutoff, and each visit tests every
+    tested ray against every triangle (_packet_visit), as mcpt_tpu's
+    kernels do. Each counts the entry keys its kernel computes: the
+    kernels' only over the ns real superblock columns and a superblock's
+    slots up to its last real treelet (pad boxes always miss), mcpt_tpu's
+    over all NSp columns and S_B slots."""
     n_tiles = rays.shape[0] // RAY_TILE
     dev = rays.device
     bits_ns, bits_sb = sc.bits_for(tl.nsp), sc.bits_for(tl.s_b)
     s_b = tl.s_b
-    slot = torch.arange(s_b, device=dev)
+    pos = torch.arange(s_b, device=dev)
+    if reference:
+        visit, chunk, n_cols = _packet_visit, sc.plain_chunk(RAY_TILE, max(tl.c, tl.nsp)), tl.nsp
+        n_slots = torch.full((tl.ns,), s_b, device=dev)
+    else:
+        visit, chunk, n_cols = _sub_walks, sc.plain_chunk(RAY_TILE, s_b), tl.ns
+        n_slots = ((tl.row_count.view(tl.ns, s_b) > 0).long() * (pos + 1)).amax(dim=1)
     if n_tiles == 0:
         return sc.HitState(rays[:, 7], closest).outputs()
     outs = []
-    step = sc.plain_chunk(RAY_TILE, max(tl.c, tl.nsp))
-    for c0 in range(0, n_tiles, step):
-        n = min(n_tiles, c0 + step) - c0
-        o, d, t_lo, t_hi, active = sc.tile_view(rays[c0 * RAY_TILE:(c0 + n) * RAY_TILE], n)
+    for c0 in range(0, n_tiles, chunk):
+        n = min(n_tiles, c0 + chunk) - c0
+        # contiguous, so that _sub_walks reads the lanes of a flat view
+        o, d, t_lo, t_hi, active = (x.contiguous() for x in sc.tile_view(rays[c0 * RAY_TILE:(c0 + n) * RAY_TILE], n))
         inv = 1.0 / d
         st = sc.HitState(t_hi, closest)
-        colmin = entry_keys(tl.sb_box[None], o, inv, t_lo, t_hi, bits_ns, active).amin(dim=1)
-        keys = int(active.sum()) * tl.nsp  # (ray, box) entry keys the kernel computes
+        sub = sc.plain_chunk(RAY_TILE, tl.nsp)  # the [tiles, RAY_TILE, NSp] keys a part at a time
+        colmin = torch.cat([entry_keys(tl.sb_box[None, :, :tl.ns], o[i:i + sub], inv[i:i + sub],
+                                       t_lo[i:i + sub], t_hi[i:i + sub], bits_ns, active[i:i + sub]).amin(dim=1)
+                            for i in range(0, n, sub)])
+        keys = int(active.sum()) * n_cols  # (ray, box) entry keys the kernel computes
         state = torch.full((n,), _NEED, dtype=torch.int64, device=dev)
         sbk = torch.zeros(n, dtype=torch.int64, device=dev)  # current superblock
-        cursor = torch.zeros(n, dtype=torch.int64, device=dev)
+        cursor = torch.zeros(n, dtype=torch.int64, device=dev)  # next position in its visiting order
         tcol = torch.full((n, s_b), KEY_MISS, dtype=torch.int32, device=dev)
+        order = torch.zeros((n, s_b), dtype=torch.int64, device=dev)
         for _ in range(tl.nsp * (s_b + 1) + 1):  # every step takes a slot or a superblock
             # superblocks, until each tile has a treelet to test or is done
             for _ in range(tl.nsp + 1):
                 walk = torch.nonzero(state == _WALK)[:, 0]
-                if walk.shape[0]:  # next live slot at or after the cursor
-                    tk = tcol[walk]
-                    live = (tk != KEY_MISS) & (slot[None, :] >= cursor[walk, None])
+                if walk.shape[0]:  # the next position at or after the cursor to visit
+                    tk = tcol[walk].gather(1, order[walk])
+                    ok = tk != KEY_MISS
                     if closest:
-                        live &= _lb(tk, bits_sb) < st.cut(active, walk)[:, None]
-                    k = torch.where(live, slot, s_b).amin(dim=1)
+                        ok &= _lb(tk, bits_sb) < st.cut(active, walk)[:, None]
+                    k = torch.where(ok & (pos[None, :] >= cursor[walk, None]), pos, s_b).amin(dim=1)
+                    if not reference:  # ascending keys: the first slot at or past the cutoff ends it
+                        k = torch.where(k == cursor[walk], k, s_b)
                     cursor[walk] = k
                     state[walk[k == s_b]] = _NEED
                 need = torch.nonzero(state == _NEED)[:, 0]
@@ -136,14 +178,15 @@ def _walk(tl, tris, rays, closest: bool, counts: Optional[dict]):
                 act = active[need] if closest else active[need] & ~st.found[need]
                 tcol[need] = entry_keys(tl.blk_box[s], o[need], inv[need], t_lo[need], hi, bits_sb,
                                         act).amin(dim=1)
-                keys += int(act.sum()) * s_b
+                order[need] = _visit_order(tcol[need], not reference)
+                keys += int((act.sum(dim=1) * n_slots[s]).sum())
             else:
                 raise RuntimeError("superblock selection did not settle")
             walk = torch.nonzero(state == _WALK)[:, 0]
             if walk.shape[0] == 0:
                 break
-            sc.visit_treelet(st, walk, sbk[walk] * s_b + cursor[walk], tl, tris, o, d, t_lo, t_hi,
-                             active, counts)
+            slot = order[walk, cursor[walk]]
+            keys += visit(st, walk, sbk[walk], slot, tl, ts, o, d, inv, t_lo, t_hi, active, counts)
             cursor[walk] += 1
             if not closest:
                 state[walk[~st.pending(active, walk)]] = _DONE
@@ -158,59 +201,135 @@ def _walk(tl, tris, rays, closest: bool, counts: Optional[dict]):
     return torch.cat(outs)
 
 
-def closest_hit_select_plain(tl, tris, rays, counts: Optional[dict] = None):
-    """Plain torch select walk of packed rays in tiles of RAY_TILE: (t, tri,
-    u, v), t = F32_MAX, tri = -1, u = v = 0 on a miss. With `counts`, adds
-    the treelet visits, triangle tests and (ray, box) entry keys."""
+def _sub_walks(st, tiles, s, k, tl, ts, o, d, inv, t_lo, t_hi, active, counts):
+    """The per-ray walks of treelet slot k of superblock s for the rays of
+    `tiles` whose own key for it is live (the kernel's step); returns the
+    entry keys it computed."""
+    g = s * tl.s_b + k
+    box = tl.blk_box[s, :, k][:, :, None]
+    bt = st.bt[tiles]
+    if st.closest:
+        act = active[tiles]
+        hi = torch.minimum(t_hi[tiles], bt)
+    else:
+        act = active[tiles] & ~st.found[tiles]
+        hi = t_hi[tiles]
+    own = entry_keys(box, o[tiles], inv[tiles], t_lo[tiles], hi, sc.bits_for(tl.s_b), act)[..., 0]
+    live = own != KEY_MISS
+    if st.closest:
+        live &= _lb(own, sc.bits_for(tl.s_b)) < bt.view(torch.int32)
+    ti, ri = torch.nonzero(live, as_tuple=True)
+    f, gl = tiles[ti] * RAY_TILE + ri, g[ti]  # the lanes' rays, flat
+    ref = tl.row_root[gl].long()
+    steps = 2 * int(tl.row_pair_count[gl].max()) + 1 if gl.shape[0] else 0
+    args = (ts.pairs, ts.tris, o.reshape(-1, 3)[f], d.reshape(-1, 3)[f], t_lo.reshape(-1)[f],
+            t_hi.reshape(-1)[f], ref, tl.tdepth, steps)
+    base = dict(tbase=tl.row_first[gl].long(), pbase=tl.row_pair_first[gl].long())
+    if st.closest:
+        state = [x.view(-1) for x in (st.bt, st.bid, st.bu, st.bv)]
+        best = [x[f] for x in state]
+        tv.ordered_closest_walk(*args, best, counts, **base)
+        for x, y in zip(state, best):
+            x[f] = y
+    else:
+        found = torch.zeros(ref.shape[0], dtype=torch.bool, device=ref.device)
+        tv.ordered_any_walk(*args, found, counts, **base)
+        st.found.view(-1)[f] = found
+    if counts is not None:
+        counts["treelet_visits"] = counts.get("treelet_visits", 0) + int(tiles.shape[0])
+    return int(act.sum())
+
+
+def _packet_visit(st, tiles, s, k, tl, ts, o, d, inv, t_lo, t_hi, active, counts):
+    sc.visit_treelet(st, tiles, s * tl.s_b + k, tl, ts.tris, o, d, t_lo, t_hi, active, counts)
+    return 0
+
+
+def closest_hit_select_plain(tl, ts, rays, counts: Optional[dict] = None):
+    """Plain torch select walk (the kernel's) of packed rays in tiles of
+    RAY_TILE over the treelet layout `tl` and the traversal tables `ts`:
+    (t, tri, u, v), t = F32_MAX, tri = -1, u = v = 0 on a miss. With
+    `counts`, adds the treelet visits, child-pair row visits, triangle
+    tests and (ray, box) entry keys."""
     PLAIN_CALLS["closest"] += 1
-    return _walk(tl, tris, rays, True, counts)
+    return _walk(tl, ts, rays, True, counts, False)
 
 
-def any_hit_select_plain(tl, tris, rays, counts: Optional[dict] = None):
-    """Plain torch select walk: occlusion bool[R]."""
+def any_hit_select_plain(tl, ts, rays, counts: Optional[dict] = None):
+    """Plain torch select walk (the kernel's): occlusion bool[R]."""
     PLAIN_CALLS["any"] += 1
-    return _walk(tl, tris, rays, False, counts)
+    return _walk(tl, ts, rays, False, counts, False)
 
 
-def _launch(kind, tl, tris, rays, outs):
+def closest_hit_select_packet_plain(tl, ts, rays, counts: Optional[dict] = None):
+    """The reference walk, faithful to mcpt_tpu's select kernels: the same
+    loop nest in slot order, each visit testing every tested ray of the tile
+    against every triangle of the treelet (ops/schedule.visit_treelet). Its
+    counts define the packet-test bound; nothing on the render path calls
+    it."""
+    return _walk(tl, ts, rays, True, counts, True)
+
+
+def any_hit_select_packet_plain(tl, ts, rays, counts: Optional[dict] = None):
+    """The reference walk for any hit (closest_hit_select_packet_plain)."""
+    return _walk(tl, ts, rays, False, counts, True)
+
+
+def check_select_inputs(tl, ts, rays):
+    """Raise ValueError unless the tables and rays suit the select kernels."""
+    sc.check_treelet_inputs(tl, ts.tris, rays)
+    for name, x, dt in (("pairs", ts.pairs, torch.float32), ("row_pair_first", tl.row_pair_first, torch.int32),
+                        ("row_pair_count", tl.row_pair_count, torch.int32), ("row_root", tl.row_root, torch.int32)):
+        if not x.is_cuda or not x.is_contiguous() or x.dtype != dt:
+            raise ValueError(f"{name} must be a contiguous {dt} CUDA tensor")
+    if ts.tris.data_ptr() % 16 or ts.pairs.data_ptr() % 16:
+        raise ValueError("tris and pairs must start on 16 bytes (the kernels copy them in bulk)")
+    if not 0 <= tl.tdepth <= tv.STACK_SIZE:
+        raise ValueError(f"treelets deeper than the kernels' stack of {tv.STACK_SIZE} entries")
+
+
+def _launch(kind, tl, ts, rays, outs):
     from mcpt_tpu_torch.ops._build import check, library
 
-    sc.check_treelet_inputs(tl, tris, rays)
+    check_select_inputs(tl, ts, rays)
     n_tiles = rays.shape[0] // RAY_TILE
     if n_tiles == 0:
         return
     stream = ctypes.c_void_p(torch.cuda.current_stream(rays.device).cuda_stream)
     fn = getattr(library(), f"select_{kind}")
-    check(fn(_ptr(rays), _ptr(tl.sb_box), _ptr(tl.blk_box), _ptr(tris), _ptr(tl.row_first),
-             _ptr(tl.row_count), n_tiles, tl.nsp, tl.s_b, sc.bits_for(tl.nsp), sc.bits_for(tl.s_b),
+    check(fn(_ptr(rays), _ptr(tl.sb_box), _ptr(tl.blk_box), _ptr(ts.tris), _ptr(ts.pairs), _ptr(tl.row_first),
+             _ptr(tl.row_count), _ptr(tl.row_pair_first), _ptr(tl.row_pair_count), _ptr(tl.row_root), n_tiles,
+             tl.ns, tl.nsp, tl.s_b, sc.bits_for(tl.nsp), sc.bits_for(tl.s_b), tl.tdepth,
              *(_ptr(x) for x in outs), stream), f"select_{kind}")
     LAUNCHES[kind] += 1
 
 
-def closest_hit_select_kernel(tl, tris, rays):
-    """Launch csrc/treelet.cu's select_closest_kernel; same contract as the plain version."""
+def closest_hit_select_kernel(tl, ts, rays):
+    """Launch csrc/treelet.cu's select kernel for closest hit; same contract
+    as closest_hit_select_plain."""
     R = rays.shape[0]
     outs = (torch.empty(R, device=rays.device), torch.empty(R, dtype=torch.int32, device=rays.device),
             torch.empty(R, device=rays.device), torch.empty(R, device=rays.device))
-    _launch("closest", tl, tris, rays, outs)
+    _launch("closest", tl, ts, rays, outs)
     return outs
 
 
-def any_hit_select_kernel(tl, tris, rays):
-    """Launch csrc/treelet.cu's select_any_kernel; same contract as the plain version."""
+def any_hit_select_kernel(tl, ts, rays):
+    """Launch csrc/treelet.cu's select kernel for any hit; same contract as
+    any_hit_select_plain."""
     out = torch.empty(rays.shape[0], dtype=torch.bool, device=rays.device)
-    _launch("any", tl, tris, rays, (out,))
+    _launch("any", tl, ts, rays, (out,))
     return out
 
 
 def _select(scene, org, dirn, t_min, t_max, closest):
     R = org.shape[0]
     rays, order = sc.sorted_tiles(scene, org, dirn, t_min, t_max)
-    tl, tris = scene.treelets, scene.trav.tris
+    tl, ts = scene.treelets, scene.trav
     if rays.is_cuda:
-        out = (closest_hit_select_kernel if closest else any_hit_select_kernel)(tl, tris, rays)
+        out = (closest_hit_select_kernel if closest else any_hit_select_kernel)(tl, ts, rays)
     else:
-        out = (closest_hit_select_plain if closest else any_hit_select_plain)(tl, tris, rays)
+        out = (closest_hit_select_plain if closest else any_hit_select_plain)(tl, ts, rays)
     return sc.scatter_back(out, order, R)
 
 

@@ -317,14 +317,9 @@ def closest_hit_ordered_plain(ts: TraversalSet, rays: torch.Tensor, counts: Opti
     visits (inner rows) and triangle tests to it.
 
     Each ray tests the root box, then walks the child-pair table from the
-    root: at an inner row it tests both children's boxes over [t_lo,
-    min(best_t, t_hi)], goes to the hit child with the smaller entry t (the
-    left one on equal entries) and pushes the other with its entry t; at a
-    leaf it tests the triangles, accepting t in [t_lo, t_hi) below best_t,
-    or equal to it with a lower id; after a leaf or a row with no child hit
-    it pops, dropping every entry whose t no longer lies below min(best_t,
-    t_hi). All lanes take a step at a time, deciding each branch from the
-    same state as the kernel, so the two agree bit for bit."""
+    root (ordered_closest_walk says how). All lanes take a step at a time,
+    deciding each branch from the same state as the kernel, so the two
+    agree bit for bit."""
     PLAIN_CALLS["closest"] += 1
     R = rays.shape[0]
     dev = rays.device
@@ -332,39 +327,84 @@ def closest_hit_ordered_plain(ts: TraversalSet, rays: torch.Tensor, counts: Opti
            torch.zeros(R, device=dev), torch.zeros(R, device=dev)]
     ids = torch.nonzero(_active(rays))[:, 0]
     o, t_lo, d, t_hi = rays[ids, 0:3], rays[ids, 3], rays[ids, 4:7], rays[ids, 7]
-    inv = 1.0 / d
     n = ids.shape[0]
-    bt = torch.full((n,), F32_MAX, device=dev)
-    btri = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    bu = torch.zeros(n, device=dev)
-    bv = torch.zeros(n, device=dev)
-    hit = _slab(ts.nodes[0:1].expand(n, 8), o, inv, t_lo, torch.minimum(bt, t_hi))
+    best = [x[:n].clone() for x in res]
+    hit = _slab(ts.nodes[0:1].expand(n, 8), o, 1.0 / d, t_lo, torch.minimum(best[0], t_hi))
     ref = torch.where(hit, ts.root_ref, -1).long()
-    stk_ref = torch.zeros((n, max(1, ts.depth)), dtype=torch.int64, device=dev)  # depth entries at most
-    stk_t = torch.zeros((n, max(1, ts.depth)), device=dev)
+    ordered_closest_walk(ts.pairs, ts.tris, o, d, t_lo, t_hi, ref, ts.depth, ts.n_nodes + 1, best, counts)
+    for x, y in zip(res, best):
+        x[ids] = y
+    return tuple(res)
+
+
+def _row(pairs, ref, tb8, pb8, ii):
+    """Child-pair rows of lanes ii at inner refs `ref`, and their children's
+    refs. With tb8 and pb8 (8 * each lane's first triangle and first row)
+    the refs are local: the row is pb8/8 + ref/8, and each child's ref is
+    made local, a leaf's less tb8, an inner row's less pb8."""
+    if tb8 is None:
+        row = pairs[ref >> 3]
+    else:
+        tb8, pb8 = tb8[ii], pb8[ii]
+        row = pairs[(ref + pb8) >> 3]
+    refs = row[:, [3, 7]].view(torch.int32).long()
+    if tb8 is not None:
+        refs = refs - torch.where((refs & 7) != 0, tb8[:, None], pb8[:, None])
+    return row, refs[:, 0], refs[:, 1]
+
+
+def ordered_closest_walk(pairs, tris, o, d, t_lo, t_hi, ref, depth: int, max_steps: int, best,
+                         counts: Optional[dict] = None, tbase=None, pbase=None):
+    """The closest-hit kernels' ordered walk (csrc/ray_common.cuh Walk) of
+    lanes [n] from their refs (< 0: nothing to walk), updating `best` = [t,
+    tri, u, v] of each lane in place. With tbase, pbase (i64[n]) the refs
+    are local to a treelet (ops/treelets.py): a leaf's triangles start at
+    tbase, its rows at pbase, and every ref read from a row is rebased.
+
+    At an inner row a lane tests both children's boxes over [t_lo,
+    min(best_t, t_hi)], goes to the hit child with the smaller entry t (the
+    left one on equal entries) and pushes the other with its entry t; at a
+    leaf it tests the triangles, accepting t in [t_lo, t_hi) below best_t,
+    or equal to it with a lower id; after a leaf or a row with no child hit
+    it pops, dropping every entry whose t no longer lies below min(best_t,
+    t_hi). A walk visits each row and leaf once, so `max_steps` (rows plus
+    leaves) bounds it; `depth` bounds the stack."""
+    dev = o.device
+    n = ref.shape[0]
+    inv = 1.0 / d
+    n_tris = tris.shape[0]
+    tb8 = pb8 = None
+    if tbase is not None:
+        tb8, pb8 = tbase * 8, pbase * 8
+    stk_ref = torch.zeros((n, max(1, depth)), dtype=torch.int64, device=dev)  # depth entries at most
+    stk_t = torch.zeros((n, max(1, depth)), device=dev)
     sp = torch.zeros(n, dtype=torch.int64, device=dev)
-    lane = ids  # each live lane's ray
+    kk = torch.arange(DEFAULT_LEAF_SIZE, device=dev)  # a leaf's triangle slots
+    lane = torch.arange(n, device=dev)  # each live lane's place in `best`
+    bt, btri, bu, bv = (x.clone() for x in best)
     visits = tests = 0
-    for _ in range(ts.n_nodes + 1):  # a walk visits each row and leaf at most once
+    for _ in range(max_steps + 1):
         done = ref < 0
-        if bool(done.any()):
-            for x, y in zip(res, (bt, btri, bu, bv)):
+        n_done = int(done.sum())
+        if 2 * n_done >= lane.shape[0]:  # drop finished lanes once they are half
+            for x, y in zip(best, (bt, btri, bu, bv)):
                 x[lane[done]] = y[done]
             keep = ~done
             lane, ref, o, d, inv, t_lo, t_hi = (x[keep] for x in (lane, ref, o, d, inv, t_lo, t_hi))
             bt, btri, bu, bv, stk_ref, stk_t, sp = (x[keep] for x in (bt, btri, bu, bv, stk_ref, stk_t, sp))
-        if lane.shape[0] == 0:
+            if tb8 is not None:
+                tb8, pb8 = tb8[keep], pb8[keep]
+        if n_done == done.shape[0]:
             break
         pop = torch.zeros(lane.shape[0], dtype=torch.bool, device=dev)
         ii = torch.nonzero((ref & 7) == 0)[:, 0]
         if ii.shape[0]:
             visits += ii.shape[0]
-            row = ts.pairs[ref[ii] >> 3]
+            row, lref, rref = _row(pairs, ref[ii], tb8, pb8, ii)
             th = torch.minimum(bt[ii], t_hi[ii])
-            hl, tl = _slab_entry(row[:, 0:8], o[ii], inv[ii], t_lo[ii], th)
-            hr, tr = _slab_entry(row[:, 8:16], o[ii], inv[ii], t_lo[ii], th)
-            lref = row[:, 3].view(torch.int32).long()
-            rref = row[:, 7].view(torch.int32).long()
+            oi, invi, tli = o[ii], inv[ii], t_lo[ii]
+            hl, tl = _slab_entry(row[:, 0:8], oi, invi, tli, th)
+            hr, tr = _slab_entry(row[:, 8:16], oi, invi, tli, th)
             lfirst = tl <= tr
             both = hl & hr
             bi = ii[both]
@@ -377,19 +417,23 @@ def closest_hit_ordered_plain(ts: TraversalSet, rays: torch.Tensor, counts: Opti
         li = torch.nonzero((ref >= 0) & ((ref & 7) != 0))[:, 0]
         if li.shape[0]:
             first, cnt = ref[li] >> 3, ref[li] & 7
-            lo_, do_, tl_, th_ = o[li], d[li], t_lo[li], t_hi[li]
+            if tb8 is not None:
+                first = first + (tb8[li] >> 3)
+            tl_, th_ = t_lo[li, None], t_hi[li, None]
             lbt, ltri, lu, lv = bt[li], btri[li], bu[li], bv[li]
+            # the leaf's triangles at once, then kept in order
+            on = kk[None, :] < cnt[:, None]
+            tests += int(on.sum())
+            tri = torch.clamp(first[:, None] + kk, max=n_tris - 1).to(torch.int32)
+            t, u, v, ok = _mt(tris[tri], o[li, None], d[li, None], DET_EPS_CLOSEST)
+            pre = on & ok & (t >= tl_) & (t < th_) & (u >= 0) & (v >= 0) & (1.0 - u - v >= 0)
             for k in range(DEFAULT_LEAF_SIZE):
-                on = k < cnt
-                tests += int(on.sum())
-                tri = torch.clamp(first + k, max=ts.n_tris - 1).to(torch.int32)
-                t, u, v, ok = _mt(ts.tris[tri], lo_, do_, DET_EPS_CLOSEST)
-                acc = (on & ok & (t >= tl_) & (t < th_) & ((t < lbt) | ((t == lbt) & (tri < ltri)))
-                       & (u >= 0) & (v >= 0) & (1.0 - u - v >= 0))
-                lbt = torch.where(acc, t, lbt)
-                ltri = torch.where(acc, tri, ltri)
-                lu = torch.where(acc, u, lu)
-                lv = torch.where(acc, v, lv)
+                tk, ik = t[:, k], tri[:, k]
+                acc = pre[:, k] & ((tk < lbt) | ((tk == lbt) & (ik < ltri)))
+                lbt = torch.where(acc, tk, lbt)
+                ltri = torch.where(acc, ik, ltri)
+                lu = torch.where(acc, u[:, k], lu)
+                lv = torch.where(acc, v[:, k], lv)
             bt[li], btri[li], bu[li], bv[li] = lbt, ltri, lu, lv
             pop[li] = True
         pi = torch.nonzero(pop)[:, 0]
@@ -401,11 +445,10 @@ def closest_hit_ordered_plain(ts: TraversalSet, rays: torch.Tensor, counts: Opti
             ref[pi[cand]] = stk_ref[pi[cand], sp[pi[cand]]]
             pi = pi[~cand]
     if lane.shape[0]:
-        raise RuntimeError(f"{lane.shape[0]} walks did not end within {ts.n_nodes + 1} steps")
+        raise RuntimeError(f"{lane.shape[0]} walks did not end within {max_steps + 1} steps")
     if counts is not None:
         counts["pair_visits"] = counts.get("pair_visits", 0) + visits
         counts["tri_tests"] = counts.get("tri_tests", 0) + tests
-    return tuple(res)
 
 
 def any_hit_traverse_plain(ts: TraversalSet, rays: torch.Tensor, counts: Optional[dict] = None):
@@ -427,44 +470,66 @@ def any_hit_ordered_plain(ts: TraversalSet, rays: torch.Tensor, counts: Optional
     tests up to each ray's first accept to it.
 
     Each ray tests the root box, then walks the child-pair table from the
-    root: at an inner row it tests both children's boxes over [t_lo, t_hi];
-    if both hit, it goes to the one with the smaller entry t (the left one
-    on equal entries) and pushes the other; at a leaf it tests the
-    triangles in order and ends at the first accept; after a leaf or a row
-    with no child hit it pops. All lanes take a step at a time."""
+    root (ordered_any_walk says how). All lanes take a step at a time."""
     PLAIN_CALLS["any"] += 1
     R = rays.shape[0]
     dev = rays.device
     res = torch.zeros(R, dtype=torch.bool, device=dev)
     ids = torch.nonzero(_active(rays))[:, 0]
     o, t_lo, d, t_hi = rays[ids, 0:3], rays[ids, 3], rays[ids, 4:7], rays[ids, 7]
-    inv = 1.0 / d
     n = ids.shape[0]
-    hit = _slab(ts.nodes[0:1].expand(n, 8), o, inv, t_lo, t_hi)
+    hit = _slab(ts.nodes[0:1].expand(n, 8), o, 1.0 / d, t_lo, t_hi)
     ref = torch.where(hit, ts.root_ref, -1).long()
-    stk = torch.zeros((n, max(1, ts.depth)), dtype=torch.int64, device=dev)  # depth entries at most
-    sp = torch.zeros(n, dtype=torch.int64, device=dev)
     found = torch.zeros(n, dtype=torch.bool, device=dev)
-    lane = ids  # each live lane's ray
+    ordered_any_walk(ts.pairs, ts.tris, o, d, t_lo, t_hi, ref, ts.depth, ts.n_nodes + 1, found, counts)
+    res[ids] = found
+    return res
+
+
+def ordered_any_walk(pairs, tris, o, d, t_lo, t_hi, ref, depth: int, max_steps: int, found,
+                     counts: Optional[dict] = None, tbase=None, pbase=None):
+    """The any-hit kernels' walk (csrc/ray_common.cuh AnyWalk) of lanes [n]
+    from their refs (< 0: nothing to walk), setting found[i] in place at a
+    lane's first accept; tbase and pbase as in ordered_closest_walk.
+
+    At an inner row a lane tests both children's boxes over [t_lo, t_hi];
+    if both hit, it goes to the one with the smaller entry t (the left one
+    on equal entries) and pushes the other; at a leaf it tests the
+    triangles in order and ends at the first accept; after a leaf or a row
+    with no child hit it pops."""
+    dev = o.device
+    n = ref.shape[0]
+    inv = 1.0 / d
+    n_tris = tris.shape[0]
+    tb8 = pb8 = None
+    if tbase is not None:
+        tb8, pb8 = tbase * 8, pbase * 8
+    stk = torch.zeros((n, max(1, depth)), dtype=torch.int64, device=dev)  # depth entries at most
+    sp = torch.zeros(n, dtype=torch.int64, device=dev)
+    kk = torch.arange(DEFAULT_LEAF_SIZE, device=dev)  # a leaf's triangle slots
+    fnd = torch.zeros(n, dtype=torch.bool, device=dev)
+    lane = torch.arange(n, device=dev)  # each live lane's place in `found`
     visits = tests = 0
-    for _ in range(ts.n_nodes + 1):  # a walk visits each row and leaf at most once
+    for _ in range(max_steps + 1):
         done = ref < 0
-        if bool(done.any()):
-            res[lane[done]] = found[done]
+        n_done = int(done.sum())
+        if 2 * n_done >= lane.shape[0]:  # drop finished lanes once they are half
+            found[lane[done & fnd]] = True
             keep = ~done
-            lane, ref, o, d, inv, t_lo, t_hi, stk, sp, found = (
-                x[keep] for x in (lane, ref, o, d, inv, t_lo, t_hi, stk, sp, found))
-        if lane.shape[0] == 0:
+            lane, ref, o, d, inv, t_lo, t_hi, stk, sp, fnd = (
+                x[keep] for x in (lane, ref, o, d, inv, t_lo, t_hi, stk, sp, fnd))
+            if tb8 is not None:
+                tb8, pb8 = tb8[keep], pb8[keep]
+        if n_done == done.shape[0]:
             break
         pop = torch.zeros(lane.shape[0], dtype=torch.bool, device=dev)
         ii = torch.nonzero((ref & 7) == 0)[:, 0]
         if ii.shape[0]:
             visits += ii.shape[0]
-            row = ts.pairs[ref[ii] >> 3]
-            hl, tl = _slab_entry(row[:, 0:8], o[ii], inv[ii], t_lo[ii], t_hi[ii])
-            hr, tr = _slab_entry(row[:, 8:16], o[ii], inv[ii], t_lo[ii], t_hi[ii])
-            lref = row[:, 3].view(torch.int32).long()
-            rref = row[:, 7].view(torch.int32).long()
+            row, lref, rref = _row(pairs, ref[ii], tb8, pb8, ii)
+            oi, invi, tli, thi = o[ii], inv[ii], t_lo[ii], t_hi[ii]
+            hl, tl = _slab_entry(row[:, 0:8], oi, invi, tli, thi)
+            hr, tr = _slab_entry(row[:, 8:16], oi, invi, tli, thi)
             lfirst = tl <= tr
             both = hl & hr
             bi = ii[both]
@@ -476,16 +541,17 @@ def any_hit_ordered_plain(ts: TraversalSet, rays: torch.Tensor, counts: Optional
         li = torch.nonzero((ref >= 0) & ((ref & 7) != 0))[:, 0]
         if li.shape[0]:
             first, cnt = ref[li] >> 3, ref[li] & 7
-            lo_, do_, tl_, th_ = o[li], d[li], t_lo[li], t_hi[li]
-            f = torch.zeros(li.shape[0], dtype=torch.bool, device=dev)
-            for k in range(DEFAULT_LEAF_SIZE):
-                on = (k < cnt) & ~f
-                tests += int(on.sum())
-                tri = torch.clamp(first + k, max=ts.n_tris - 1)
-                t, u, v, ok = _mt(ts.tris[tri], lo_, do_, DET_EPS_ANY)
-                f |= (on & ok & (u >= 0) & (u <= 1.0) & (v >= 0) & (u + v <= 1.0) & (t >= tl_)
-                      & (t <= th_))
-            found[li] = f
+            if tb8 is not None:
+                first = first + (tb8[li] >> 3)
+            tl_, th_ = t_lo[li, None], t_hi[li, None]
+            # the leaf's triangles at once; a lane stops at its first accept
+            on = kk[None, :] < cnt[:, None]
+            tri = torch.clamp(first[:, None] + kk, max=n_tris - 1)
+            t, u, v, ok = _mt(tris[tri], o[li, None], d[li, None], DET_EPS_ANY)
+            acc = on & ok & (u >= 0) & (u <= 1.0) & (v >= 0) & (u + v <= 1.0) & (t >= tl_) & (t <= th_)
+            f = acc.any(dim=1)
+            tests += int(torch.where(f, torch.where(acc, kk, DEFAULT_LEAF_SIZE).amin(dim=1) + 1, cnt).sum())
+            fnd[li] = f
             ref[li[f]] = -1  # the walk ends at its first accept
             pop[li[~f]] = True
         pi = torch.nonzero(pop)[:, 0]
@@ -493,11 +559,10 @@ def any_hit_ordered_plain(ts: TraversalSet, rays: torch.Tensor, counts: Optional
         sp[pi] -= has.long()
         ref[pi] = torch.where(has, stk[pi, sp[pi]], -1)
     if lane.shape[0]:
-        raise RuntimeError(f"{lane.shape[0]} walks did not end within {ts.n_nodes + 1} steps")
+        raise RuntimeError(f"{lane.shape[0]} walks did not end within {max_steps + 1} steps")
     if counts is not None:
         counts["pair_visits"] = counts.get("pair_visits", 0) + visits
         counts["tri_tests"] = counts.get("tri_tests", 0) + tests
-    return res
 
 
 def _check_inputs(ts: TraversalSet, rays):

@@ -261,7 +261,7 @@ def scene_from_arrays(d: dict, device=None) -> Scene:
         bvh = FlatBVH(**{k: d["bvh." + k] for k in _BVH_KEYS})
         if "treelets.sb_box" in d:
             treelets = tl.treelets_from_jax(d["treelets.sb_box"], d["treelets.blk_box"],
-                                            d["treelets.tri"], n_tris)
+                                            d["treelets.tri"], n_tris, bvh)
         elif n_tris > BRUTE_FORCE_MAX_TRIS:
             treelets = tl.build_treelets(bvh, n_tris)
     scene = Scene(

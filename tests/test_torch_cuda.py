@@ -283,8 +283,8 @@ def test_treelet_kernels_equal_plain_versions_bitwise(stress_cuda, layout, n):
             p = getattr(S, f"{kind}_hit_schedule_plain")(tl, tris, rays, sched)
             for a, b in zip(k, p) if closest else ((k, p),):
                 assert torch.equal(a, b), (kind, v)
-        k = getattr(SL, f"{kind}_hit_select_kernel")(tl, tris, rays)
-        p = getattr(SL, f"{kind}_hit_select_plain")(tl, tris, rays)
+        k = getattr(SL, f"{kind}_hit_select_kernel")(tl, scene.trav, rays)
+        p = getattr(SL, f"{kind}_hit_select_plain")(tl, scene.trav, rays)
         for a, b in zip(k, p) if closest else ((k, p),):
             assert torch.equal(a, b), kind
 
@@ -330,3 +330,39 @@ def test_stress_render_runs_through_select_kernels(stress_cuda, monkeypatch):
     assert all(select.LAUNCHES[k] > launches[k] for k in launches)
     assert (traverse.LAUNCHES, traverse.PLAIN_CALLS, select.PLAIN_CALLS, woop.LAUNCHES) == others
     assert r.stats["nan_scrubbed"] == 0 and float(r.film.accum.mean()) > 0
+
+
+@pytest.mark.parametrize("D", [16, 40])
+def test_select_kernel_on_deep_treelets_equals_plain_walk_bitwise(D):
+    """A treelet D inner nodes deep (deep_chain's BVH as one treelet): the
+    select kernels with their 16-entry stack (D = 16) and their 128-entry
+    stack against their plain walk, bit for bit, in sorted and slot order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
+    import sys
+
+    import numpy as np
+
+    from mcpt_tpu_torch.ops import select as SL
+    from mcpt_tpu_torch.ops.schedule import pad_tiles
+    from mcpt_tpu_torch.ops.treelets import build_treelets
+    from mcpt_tpu_torch.ops.woop import F32_MAX, pack_rays
+    from mcpt_tpu_torch.scene import _to
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    try:
+        from torch_parity import deep_chain
+    finally:
+        sys.path.pop(0)
+    ts, o, d, bvh = deep_chain(D, np.random.default_rng(D), device="cuda", with_bvh=True)
+    tl = _to(build_treelets({k: getattr(bvh, k).cpu().numpy() for k in ("lo", "hi", "first", "count", "skip")},
+                            D + 1), torch.device("cuda"))
+    assert tl.tdepth == D
+    t_max = torch.from_numpy(np.random.default_rng(D + 1).uniform(0.5, 4.0, o.shape[0]).astype(np.float32))
+    o, d = torch.from_numpy(o).cuda(), torch.from_numpy(d).cuda()
+    for kind, tm in (("closest", F32_MAX), ("any", t_max.cuda())):
+        rays = pad_tiles(pack_rays(o, d, 1e-3, tm))
+        k = getattr(SL, f"{kind}_hit_select_kernel")(tl, ts, rays)
+        p = getattr(SL, f"{kind}_hit_select_plain")(tl, ts, rays)
+        for a, b in zip(k, p) if kind == "closest" else ((k, p),):
+            assert torch.equal(a, b), kind

@@ -1,5 +1,8 @@
-"""The port's superblock-select treelet traversal (ops/select.py) and the
-MCPT_TREELET_SELECT=smem route against mcpt_tpu on the CPU.
+"""The port's superblock-select treelet traversal (ops/select.py: the plain
+version of the select kernels, per-ray walks of each staged treelet) and
+the MCPT_TREELET_SELECT=smem route against mcpt_tpu on the CPU
+(tests/test_torch_select_walk.py holds the walk against the reference
+walk).
 
 mcpt_tpu's select kernels (ops/pallas/select.py) have no interpret mode;
 they compute the same hits as its voted treelet kernel, which does, so the
@@ -61,7 +64,7 @@ def test_plain_select_matches_jax_treelet_kernel_and_bruteforce(soup):
     jax_scene, port, v0, e1, e2 = soup
     o, d, t_max = _sorted_rays(port, 1, 1024)
     counts = {}
-    t, tri, u, v = SL.closest_hit_select_plain(port.treelets, port.trav.tris, _packed(o, d, t_max), counts)
+    t, tri, u, v = SL.closest_hit_select_plain(port.treelets, port.trav, _packed(o, d, t_max), counts)
     assert counts["treelet_visits"] > 8 and counts["tri_tests"] > 0
     jargs = (jnp.asarray(o), jnp.asarray(d), 1e-4, jnp.asarray(t_max))
     ref = closest_hit_treelets(jax_scene, *jargs, ray_tile=128, interpret=True, sort_rays=False)
@@ -78,7 +81,7 @@ def test_plain_select_matches_jax_treelet_kernel_and_bruteforce(soup):
     np.testing.assert_allclose(to_numpy(v)[sel], np.asarray(ref.v)[sel], rtol=0, atol=1e-4)
 
     t_any = np.minimum(t_max, 3.0).astype(np.float32)
-    got = to_numpy(SL.any_hit_select_plain(port.treelets, port.trav.tris, _packed(o, d, t_any)))
+    got = to_numpy(SL.any_hit_select_plain(port.treelets, port.trav, _packed(o, d, t_any)))
     jargs = (jnp.asarray(o), jnp.asarray(d), 1e-4, jnp.asarray(t_any))
     for want in (any_hit_treelets(jax_scene, *jargs, ray_tile=128, interpret=True, sort_rays=False),
                  any_hit_bruteforce(_dense_scene(v0, e1, e2), *jargs)):
@@ -116,7 +119,7 @@ def test_kernel_wrappers_refuse_cpu_tensors(soup):
     launches = dict(SL.LAUNCHES)
     for fn in (SL.closest_hit_select_kernel, SL.any_hit_select_kernel):
         with pytest.raises(ValueError, match="CUDA"):
-            fn(port.treelets, port.trav.tris, _packed(o, d, t_max))
+            fn(port.treelets, port.trav, _packed(o, d, t_max))
     assert SL.LAUNCHES == launches
 
 

@@ -49,24 +49,55 @@ def test_layout_matches_jax(T, c, s_b, seed):
     assert count.sum() == T and count.max() <= c and (count > 0).sum() > ts.ns
 
 
+_LAYOUT = ("sb_box", "blk_box", "row_first", "row_count", "row_pair_first", "row_pair_count", "row_root")
+
+
+def _soup_bvh(port):
+    """The soup's FlatBVH arrays, from its traversal tables' source."""
+    from mcpt_tpu_torch.scene import FlatBVH
+
+    n = port.trav.nodes
+    word = n[:, 3].view(torch.int32)
+    return FlatBVH(lo=n[:, 0:3].numpy(), hi=n[:, 4:7].numpy(), first=(word >> 3).numpy(),
+                   count=(word & 7).numpy(), skip=n[:, 7].view(torch.int32).numpy())
+
+
 def test_carry_across_round_trips():
-    """treelets_from_jax turns mcpt_tpu's arrays into the port's layout, and
-    the port's ranges give mcpt_tpu's tri block back; a row whose ids are not
-    one contiguous run is refused."""
+    """treelets_from_jax turns mcpt_tpu's arrays into the port's layout,
+    each treelet's sub-BVH arrays included, and the port's ranges give
+    mcpt_tpu's tri block back; a row whose ids are not one contiguous run is
+    refused."""
     from mcpt_tpu_torch.ops.treelets import treelets_from_jax
 
     jax_scene, port, v0, e1, e2 = treelet_soup(np.random.default_rng(7), 1500, 16, 8)
     jts = jax_scene.treelets
-    got = treelets_from_jax(np.asarray(jts.sb_box), np.asarray(jts.blk_box), np.asarray(jts.tri), 1500)
-    for name in ("sb_box", "blk_box", "row_first", "row_count"):
+    bvh = _soup_bvh(port)
+    got = treelets_from_jax(np.asarray(jts.sb_box), np.asarray(jts.blk_box), np.asarray(jts.tri), 1500, bvh)
+    for name in _LAYOUT:
         np.testing.assert_array_equal(_bits(getattr(got, name)), _bits(getattr(port.treelets, name)), err_msg=name)
+    assert got.tdepth == port.treelets.tdepth > 0
     np.testing.assert_array_equal(_bits(jax_tri_rows(got, v0, e1, e2)), _bits(jts.tri))
     bad = np.array(jts.tri)
     g = int(np.nonzero(to_numpy(got.row_count) >= 3)[0][0])
     ids = bad[g, 9, :3].view(np.int32).copy()
     bad[g, 9, :3] = ids[[1, 0, 2]].view(np.float32)
     with pytest.raises(ValueError, match="contiguous"):
-        treelets_from_jax(np.asarray(jts.sb_box), np.asarray(jts.blk_box), bad, 1500)
+        treelets_from_jax(np.asarray(jts.sb_box), np.asarray(jts.blk_box), bad, 1500, bvh)
+
+
+def test_carry_across_refuses_a_row_without_a_subtree():
+    """A row whose ids are one contiguous run, but not the triangles of one
+    BVH subtree (here a treelet's first triangle dropped), has no root."""
+    from mcpt_tpu_torch.ops.treelets import PAD_TRI_ID, treelets_from_jax
+
+    jax_scene, port, *_ = treelet_soup(np.random.default_rng(8), 1500, 16, 8)
+    jts = jax_scene.treelets
+    bad = np.array(jts.tri)
+    g = int(np.nonzero(to_numpy(port.treelets.row_count) >= 9)[0][0])
+    bad[g, :, :-1] = bad[g, :, 1:]
+    bad[g, 9, -1] = np.int32(PAD_TRI_ID).view(np.float32)
+    with pytest.raises(ValueError, match="subtree"):
+        treelets_from_jax(np.asarray(jts.sb_box), np.asarray(jts.blk_box), bad, 1500, _soup_bvh(port))
 
 
 @pytest.fixture(scope="module")
@@ -101,6 +132,22 @@ def test_stress_scene_layout_matches_jax(stress_pair):
     g = ps.geom
     np.testing.assert_array_equal(
         _bits(jax_tri_rows(ts, *(to_numpy(x) for x in (g.v0, g.e1, g.e2)))), _bits(jts.tri))
+
+
+def test_stress_scene_sub_bvhs_equal_the_carried_ones(stress_pair):
+    """The port's build and the JAX-carried path (treelets_from_jax over
+    mcpt_tpu's arrays and its BVH) give the same sub-BVH arrays on the
+    5,986-triangle stress scene."""
+    from mcpt_tpu_torch.ops.treelets import treelets_from_jax
+
+    js, ps = stress_pair
+    jts = js.treelets
+    bvh = {k: np.asarray(getattr(js.bvh, k)) for k in ("lo", "hi", "first", "count", "skip")}
+    got = treelets_from_jax(np.asarray(jts.sb_box), np.asarray(jts.blk_box), np.asarray(jts.tri),
+                            ps.num_tris, bvh)
+    for name in _LAYOUT:
+        np.testing.assert_array_equal(_bits(getattr(got, name)), _bits(getattr(ps.treelets, name)), err_msg=name)
+    assert got.tdepth == ps.treelets.tdepth > 0
 
 
 def test_small_scene_has_no_layout():

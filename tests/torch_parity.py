@@ -85,7 +85,7 @@ def soup_rays(rng, R, spread=6.0):
     return o, d
 
 
-def deep_chain(D, rng, device="cpu"):
+def deep_chain(D, rng, device="cpu", with_bvh=False):
     """A TraversalSet whose inner nodes form a chain D deep, and rays that
     walk it. Inner node 2k's children are leaf 2k+1 (triangle k) and inner
     node 2k+2, whose box holds every triangle below it, so a ray that enters
@@ -128,4 +128,5 @@ def deep_chain(D, rng, device="cpu"):
     o[:q] = np.concatenate([rng.uniform(0.5, 0.75, (q, 2)), np.full((q, 1), -1.5)], axis=1)
     d[:q] = rng.normal(size=(q, 3)) * [0.05, 0.05, 0.0] + [0.0, 0.0, 1.0]
     d /= np.linalg.norm(d, axis=1, keepdims=True)
-    return ts, o.astype(np.float32), d.astype(np.float32)
+    out = (ts, o.astype(np.float32), d.astype(np.float32))
+    return out + (bvh,) if with_bvh else out

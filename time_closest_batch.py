@@ -5,6 +5,7 @@
     python3 time_closest_batch.py /tmp/batches/traverse_closest_third.pt [--root CHECKOUT]
     python3 time_closest_batch.py --kernel traverse_any /tmp/batches/traverse_any_third.pt ...
     python3 time_closest_batch.py --kernel woop_closest /tmp/batches/woop_closest_camera.pt ...
+    python3 time_closest_batch.py --kernel select_closest /tmp/batches/select_closest_camera.pt ...
 
 chip_smoke.py saves the packed rays of the batches it times (--save-batches
 DIR; --save-closest-batch PATH saves the bathroom pass's third closest-hit
@@ -14,7 +15,9 @@ default, or an unpacked earlier commit of the repo): bathroom-stress, built
 in memory, for the traversal kernels, and scenes/veach-mis.obj for
 woop_closest (whose chunk mask it computes again from the rays). Then it
 runs that checkout's kernel (--kernel: traverse_closest, the default,
-traverse_any or woop_closest) on each batch and prints its time (CUDA
+traverse_any, woop_closest, select_closest or select_any; the select
+kernels take the sorted 128-ray tiles that chip_smoke.py phase 12 saves,
+with the treelet layout the checkout builds) on each batch and prints its time (CUDA
 events, median of 7 runs after a warm-up, as chip_smoke.py times), its hits
 and a checksum of its answer, so that the kernels of two checkouts are
 compared on one batch. Needs one CUDA card; exits 1 without one.
@@ -24,7 +27,7 @@ import os
 import sys
 import time
 
-KERNELS = ("traverse_closest", "traverse_any", "woop_closest")
+KERNELS = ("traverse_closest", "traverse_any", "woop_closest", "select_closest", "select_any")
 
 
 def main() -> int:
@@ -59,6 +62,18 @@ def main() -> int:
 
         def run(rays, mask):
             return woop.closest_hit_woop_kernel(ws, rays, mask)
+    elif args.kernel.startswith("select_"):
+        import inspect
+
+        from mcpt_tpu_torch.ops import select
+
+        (scene,) = chip_smoke.stress_scene(chip_smoke.STRESS_TRIS, 0, ("cuda",))
+        kern = getattr(select, f"{args.kernel.split('_')[1]}_hit_select_kernel")
+        # a checkout before the per-ray walks takes the triangles, a later one the traversal tables
+        tables = scene.trav.tris if "tris" in inspect.signature(kern).parameters else scene.trav
+
+        def run(rays, mask):
+            return kern(scene.treelets, tables, rays)
     else:
         (scene,) = chip_smoke.stress_scene(chip_smoke.STRESS_TRIS, 0, ("cuda",))
         kern = tv.closest_hit_traverse_kernel if args.kernel == "traverse_closest" else tv.any_hit_traverse_kernel
