@@ -7,7 +7,7 @@ Phases, each printing its wall seconds:
   1. the device, and the card's name and power limit from nvidia-smi;
   2. one nvcc build of every kernel under mcpt_tpu_torch/csrc, and the g++
      build of the host BVH builder (csrc/host), with the -Xptxas -v lines
-     of the Woop, traversal and select kernels;
+     of the Woop, traversal, schedule and select kernels;
   3. the Woop kernels against their plain torch versions on the card, on
      veach-mis rays at the main path's shapes, with times (CUDA events) and
      the share of pairs their interval pre-tests reject;
@@ -30,9 +30,12 @@ Phases, each printing its wall seconds:
   9. a small render of a 5,986-triangle stress scene on the card against
      the same render on the CPU;
  10. bathroom-stress's treelet layout built again from its BVH, timed;
- 11. the schedule kernels against their plain walks on phase 7's camera and
-     shadow rays and on a scrambled batch, with the pre-pass and the exact
-     fallback, against traverse.cu, with times;
+ 11. the schedule pre-pass kernel against its plain version, and the
+     schedule walk kernels (per-ray walks of each scheduled treelet's staged
+     sub-BVH) against their plain walks, the reference (packet) walk and,
+     with the exact fallback, traverse.cu, on phase 7's camera and shadow
+     rays and on a scrambled batch, with both walks' counts and times of the
+     pre-pass, the kernel, the fallback and the whole entry point;
  12. the select kernels against their plain walks (per-ray walks of each
      staged treelet) on phase 7's batches, against the reference walk
      (every triangle of every treelet a tile visits) and traverse.cu, with
@@ -41,18 +44,22 @@ Phases, each printing its wall seconds:
  13. the bathroom main path of phase 8 through the select kernels
      (MCPT_TREELET_SELECT=smem dispatch), its film against phase 8's;
  14. phase 9's render through the select kernels, card against CPU.
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}. Any failure raises and exits
-nonzero; without a CUDA card the script exits 1 before printing a result.
+The line before the last is a JSON object with one entry per kernel (the
+eight that replace TPU kernels, and the schedule pre-pass, which replaces
+none); the last line is {"ok": true, "device": {...}}. Any failure raises
+and exits nonzero; without a CUDA card the script exits 1 before printing a
+result.
 
 --save-closest-batch PATH saves the rays of phase 8's third closest-hit
 batch to PATH; --save-batches DIR saves, for time_closest_batch.py, the
 rays of the batches the Woop closest-hit and the traversal kernels are
 timed on: woop_closest_camera.pt (phase 3), woop_closest_third.pt (phase
 4), traverse_any_shadow.pt (phase 7, sorted), traverse_closest_third.pt
-and traverse_any_third.pt (phase 8), and the select kernels' tiles
-select_closest_camera.pt, select_any_shadow.pt, select_closest_third.pt
-and select_any_third.pt (phase 12).
+and traverse_any_third.pt (phase 8), the schedule kernels' tiles and rows
+schedule_closest_camera.pt, schedule_any_shadow.pt,
+schedule_closest_scrambled.pt, each with its *_rows.pt (phase 11), and the
+select kernels' tiles select_closest_camera.pt, select_any_shadow.pt,
+select_closest_third.pt and select_any_third.pt (phase 12).
 """
 from __future__ import annotations
 
@@ -101,6 +108,10 @@ BATH_PASSES = 2
 TRAV_NODE_OPS = {"closest": 29, "any": 28}
 TRAV_TRI_OPS = {"closest": 55, "any": 54}
 SCHED_V = 512  # schedule capacity a tile (mcpt_tpu DEFAULT_V)
+# Phase 11 holds the schedule walk kernels against the plain walks on every
+# tile of the camera and shadow batches and on every 8th tile of the
+# scrambled one (900 of 7,200): on an H100 the plain walk took 27 s for all.
+SCRAMBLED_STRIDE = 8
 # f32 operations of csrc/treelet.cu: per (ray, triangle) test, Moller-
 # Trumbore (27 mul, 17 add/sub, abs, compare, one division) and the accept
 # predicate (closest: 7 compares and 2 sub with the tie rule; any: 6
@@ -109,14 +120,19 @@ SCHED_V = 512  # schedule capacity a tile (mcpt_tpu DEFAULT_V)
 # interval's ends, the compare and the clamp at 0.
 TREELET_TRI_OPS = {"closest": 56, "any": 54}
 TREELET_KEY_OPS = 31
+# f32 operations of the schedule pre-pass a (tile, box) interval test: per
+# axis, two planes of 2 sub, 4 mul, 3 min and 3 max, then min, max, the
+# compare, the 1.001 mul, and the running max and min (30); across axes the
+# ends' max and min, the compare (3).
+PREPASS_BOX_OPS = 93
 # Rays of a 921,600-ray batch, and pixels of a 1280x720 film, on which a
-# treelet route may answer differently from the BVH walk: on a ray through
-# two leaves' shared face the walk culls the second leaf when the face's
-# slab entry computes to the running best_t, though the triangle there is
-# one ulp closer; the treelet kernels test whole treelets and keep it
-# (ROADMAP queue 3 item 4). Such rays are rare (0 in each batch of
-# phases 11-12, 1 pixel in phase 13's two passes), so more than this is a
-# fault.
+# treelet route or its reference (packet) walk may answer differently from
+# the BVH walk: on a ray through two leaves' shared face a walk culls the
+# second leaf when the face's slab entry computes to the running best_t,
+# though the triangle there is one ulp closer; a walk that tests whole
+# treelets keeps it (ROADMAP queue 3 item 4). Such rays are rare (0 or 1
+# in each batch of phases 11-12, 1 pixel in phase 13's two passes), so
+# more than this is a fault.
 ROUTE_DIFF_MAX = 16
 
 
@@ -174,7 +190,7 @@ def build_kernels():
     if info:
         print(f"nvcc: {info['cmd']}\n{info['output'].strip()}")
         for name in ("woop_closest_kernel", "woop_any_kernel", "traverse_closest_kernel",
-                     "traverse_any_kernel", "select_kernel"):
+                     "traverse_any_kernel", "schedule_prepass_kernel", "schedule_kernel", "select_kernel"):
             for line in _ptxas_usage(info["output"], name):
                 print(f"ptxas {name}: {line}")
     t0 = time.perf_counter()
@@ -974,7 +990,7 @@ def _packet_bound(kind, counts, rays, scene, extra_bytes):
     over the FP32 rate, or its inputs read once and outputs written once
     over the memory rate, whichever is longer. Printed beside bound_ms,
     which is the function's (the BVH walk's tests on the same rays)."""
-    ops = counts["tri_tests"] * TREELET_TRI_OPS[kind] + counts.get("box_keys", 0) * TREELET_KEY_OPS
+    ops = counts.get("tri_tests", 0) * TREELET_TRI_OPS[kind] + counts.get("box_keys", 0) * TREELET_KEY_OPS
     tl = scene.treelets
     nbytes = (rays.shape[0] * (32 + (16 if kind == "closest" else 1)) + 4 * scene.trav.tris.numel()
               + 4 * (tl.row_first.numel() + tl.row_count.numel()) + extra_bytes)
@@ -1002,13 +1018,21 @@ def _walk_plain(plain, *args):
 @phase("11 schedule kernels vs plain")
 def check_schedule(scene, batches, walks):
     """Per 921,600-ray batch (the camera rays and shadow rays of phase 7,
-    and a scrambled batch that fills the fallback): the pre-pass, the kernel
-    against its plain walk on every tile (0 rays may differ, t/u/v bitwise),
+    and a scrambled batch that fills the fallback): the pre-pass kernel
+    against its plain version (keys, incomplete tiles and live counts
+    bitwise); the walk kernel against its plain walk (0 rays may differ,
+    t/u/v bitwise; every tile, every SCRAMBLED_STRIDE-th of the scrambled
+    batch) and the reference (packet) walk on the same tiles and, as
     the whole function (kernel, then traverse.cu on the incomplete tiles'
-    rays) against traverse.cu (at most ROUTE_DIFF_MAX rays may differ), and
-    the pre-pass, kernel and fallback times. bound_ms is the function's:
-    the BVH walk's node visits and triangle tests on the same rays (phase
-    7's counts, or a plain walk of the scrambled batch)."""
+    rays), against traverse.cu (at most ROUTE_DIFF_MAX rays may differ
+    each, examples printed); both walks' counts, and on camera rays the
+    walk must make at most a fifth of the packet walk's triangle tests.
+    Times the pre-pass, the kernel, the fallback and the whole entry point
+    (sort, pre-pass, kernel, fallback, scatter) beside traverse.cu's. bound_ms
+    is the function's: the BVH walk's node visits and triangle tests on the
+    same rays (phase 7's counts, or a plain walk of the scrambled batch);
+    the walk bound (this kernel's counts) and packet-test bound (the
+    reference walk's) are printed beside it."""
     import torch
 
     from mcpt_tpu_torch.ops import schedule as S
@@ -1020,60 +1044,141 @@ def check_schedule(scene, batches, walks):
              ("scrambled", "closest", _scrambled_batch(scene, batches["closest"].shape[0])))
     for label, kind, rays in cases:
         srt = _sorted_tiles(scene, rays)
-        sched, inc, n_live = S.build_schedule(tl, srt, SCHED_V)
+        # the pre-pass
+        sched, inc, n_live = S.build_schedule_kernel(tl, srt, SCHED_V)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want_sched = S.build_schedule_plain(tl, srt, SCHED_V)
+        torch.cuda.synchronize()
+        prepass_plain_ms = 1e3 * (time.perf_counter() - t0)
+        pre_counts = {}
+        culled = S.build_schedule_plain(tl, srt, SCHED_V, cull=True, counts=pre_counts)
+        pre_bitwise = all(torch.equal(a, b) for a, b in zip((sched, inc, n_live), want_sched))
+        pre_mirror = all(torch.equal(a, b) for a, b in zip(culled, want_sched))
+        n_rows = int((sched != want_sched[0]).any(dim=1).sum())
+        if SAVE_BATCHES:
+            _save(srt, f"schedule_{kind}_{label}.pt")
+            _save(sched, f"schedule_{kind}_{label}_rows.pt")
         nl = n_live.float()
         n_inc = int(inc.sum())
+        # the walks: the kernel on every tile; the plain walks on every tile
+        # of the camera and shadow batches and on every SCRAMBLED_STRIDE-th
+        # tile of the scrambled one (the plain walk's loop takes the longest
+        # there)
         kern = getattr(S, f"{kind}_hit_schedule_kernel")
-        plain = getattr(S, f"{kind}_hit_schedule_plain")
-        p, counts, plain_ms = _walk_plain(plain, tl, ts.tris, srt, sched)
-        k = kern(tl, ts.tris, srt, sched)
-        n_diff, bitwise, err = _agreement(kind, k, p)
-        inc_ray = inc.repeat_interleave(S.RAY_TILE)
-        fb = srt.clone()
-        fb[:, 7] = torch.where(inc_ray, srt[:, 7], 0.0)
+        k = kern(tl, ts, srt, sched)
+        tiles = torch.arange(0, sched.shape[0], SCRAMBLED_STRIDE if label == "scrambled" else 1, device=srt.device)
+        ray_ids = (tiles[:, None] * S.RAY_TILE + torch.arange(S.RAY_TILE, device=srt.device)).reshape(-1)
+        sub, sub_sched = srt[ray_ids], sched[tiles].contiguous()
+        k_sub = tuple(x[ray_ids] for x in k) if kind == "closest" else k[ray_ids]
+        p, counts, plain_ms = _walk_plain(getattr(S, f"{kind}_hit_schedule_plain"), tl, ts, sub, sub_sched)
+        ref, ref_counts, ref_ms = _walk_plain(getattr(S, f"{kind}_hit_schedule_packet_plain"), tl, ts, sub,
+                                              sub_sched)
+        n_diff, bitwise, err = _agreement(kind, k_sub, p)
+        n_ref = _agreement(kind, k_sub, ref)[0]
+        inc_ids = S.incomplete_rays(inc)
+        fb = srt[inc_ids]  # the fallback's rays, as the entry point takes them
         trav = getattr(tv, f"{kind}_hit_traverse_kernel")
         f = trav(ts, fb)
-        whole = (tuple(torch.where(inc_ray, a, b) for a, b in zip(f, k)) if kind == "closest"
-                 else torch.where(inc_ray, f, k))
+        whole = tuple(x.clone() for x in k) if kind == "closest" else k.clone()
+        for a, b in zip(whole, f) if kind == "closest" else ((whole, f),):
+            a[inc_ids] = b
         want = trav(ts, srt)
         n_trav = _agreement(kind, whole, want)[0]
-        prepass_ms = cuda_time_ms(lambda: S.build_schedule(tl, srt, SCHED_V))
-        ms = cuda_time_ms(lambda: kern(tl, ts.tris, srt, sched))
+        # times
+        prepass_ms = cuda_time_ms(lambda: S.build_schedule_kernel(tl, srt, SCHED_V))
+        ms = cuda_time_ms(lambda: kern(tl, ts, srt, sched))
         fallback_ms = cuda_time_ms(lambda: trav(ts, fb)) if n_inc else 0.0
+        trav_ms = cuda_time_ms(lambda: trav(ts, srt))
+        args = (rays[:, 0:3], rays[:, 4:7], rays[:, 3], rays[:, 7])
+        whole_ms = cuda_time_ms(lambda: getattr(S, f"{kind}_hit_schedule")(scene, *args, v=SCHED_V))
+        trav_whole_ms = cuda_time_ms(lambda: getattr(tv, f"{kind}_hit_traverse")(ts, *args))
+        # bounds
         trav_counts = (_walk_plain(tv.closest_hit_traverse_plain, ts, srt)[1] if label == "scrambled"
                        else walks[kind])
         bound_ms, by = _traversal_bound(kind, trav_counts, srt, ts)
-        packet_ms = _packet_bound(kind, counts, srt, scene, 4 * sched.numel())
-        print(f"schedule_{kind} ({label}): {rays.shape[0]} rays, {sched.shape[0]} tiles, {n_inc} incomplete, "
-              f"live treelets a tile p50 {float(nl.quantile(0.5)):.0f} p99 {float(nl.quantile(0.99)):.0f}; "
-              f"{n_diff} rays differ from the plain walk on every tile (bitwise {bitwise}, max abs err "
-              f"{err:.3g}); {n_trav} differ from traverse.cu{' e.g. ' + str(_examples(kind, whole, want)) if n_trav else ''}; "
-              f"{counts.get('treelet_visits', 0)} treelet visits, {counts.get('tri_tests', 0)} triangle tests")
-        print(f"schedule_{kind} ({label}): pre-pass {prepass_ms:.3f} ms, kernel {ms:.4f} ms, fallback "
-              f"{fallback_ms:.4f} ms, plain walk {plain_ms:.1f} ms (one run), bound {bound_ms:.4f} ms ({by}; "
-              f"the BVH walk's tests), packet-test bound {packet_ms:.4f} ms (this kernel's tests)")
+        walk_ms = _walk_bound(kind, counts, sub, scene, 4 * sub_sched.numel())
+        packet_ms = _packet_bound(kind, ref_counts, sub, scene, 4 * sub_sched.numel())
+        pre_bound_ms, pre_by = _prepass_bound(pre_counts, srt, scene, sched)
+        tested = int(((sub[:, 3] < sub[:, 7]) & (sub[:, 0:3].abs() < 1e29).all(dim=1)).sum())
+        per = max(tested, 1)
+        print(f"schedule_prepass ({label}): {rays.shape[0]} rays, {sched.shape[0]} tiles, {n_inc} incomplete, "
+              f"live treelets a tile p50 {float(nl.quantile(0.5)):.0f} p99 {float(nl.quantile(0.99)):.0f} max "
+              f"{int(n_live.max())}; kernel equals the plain version bitwise {pre_bitwise} ({n_rows} rows differ), "
+              f"the culled mirror equals it {pre_mirror}; {pre_counts['box_tests']} box tests "
+              f"({pre_counts['box_tests'] / sched.shape[0]:.1f} a tile); kernel {prepass_ms:.4f} ms, plain "
+              f"{prepass_plain_ms:.1f} ms (one run), bound {pre_bound_ms:.4f} ms ({pre_by})")
+        print(f"schedule_{kind} ({label}): the plain walks on {tiles.shape[0]} of {sched.shape[0]} tiles, {tested} "
+              f"tested rays; {n_diff} rays differ from the plain walk (bitwise {bitwise}, max abs err {err:.3g}); "
+              f"{n_ref} differ from the packet walk{' e.g. ' + str(_examples(kind, k_sub, ref)) if n_ref else ''}; "
+              f"{n_trav} differ from traverse.cu on every tile"
+              f"{' e.g. ' + str(_examples(kind, whole, want)) if n_trav else ''}")
+        print(f"schedule_{kind} ({label}): walk {counts.get('treelet_visits', 0)} treelet visits, "
+              f"{counts.get('pair_visits', 0)} child-pair visits ({counts.get('pair_visits', 0) / per:.2f} a tested "
+              f"ray), {counts.get('tri_tests', 0)} triangle tests ({counts.get('tri_tests', 0) / per:.2f}), "
+              f"{counts.get('box_keys', 0)} entry keys ({counts.get('box_keys', 0) / per:.2f}); packet walk "
+              f"{ref_counts.get('treelet_visits', 0)} treelet visits, {ref_counts.get('tri_tests', 0)} triangle tests "
+              f"({ref_counts.get('tri_tests', 0) / per:.2f})")
+        print(f"schedule_{kind} ({label}): pre-pass {prepass_ms:.4f} ms, kernel {ms:.4f} ms, fallback "
+              f"{fallback_ms:.4f} ms; the whole {kind}_hit_schedule {whole_ms:.4f} ms against {kind}_hit_traverse "
+              f"{trav_whole_ms:.4f} ms (traverse.cu alone {trav_ms:.4f} ms); plain walk {plain_ms:.1f} ms, packet "
+              f"walk {ref_ms:.1f} ms (one run each); bound {bound_ms:.4f} ms ({by}; the BVH walk's tests), walk "
+              f"bound {walk_ms:.4f} ms (this kernel's counts), packet-test bound {packet_ms:.4f} ms (the packet "
+              f"walk's)")
+        if not (pre_bitwise and pre_mirror):
+            raise AssertionError(f"schedule_prepass kernel differs from its plain version on {n_rows} rows (culled "
+                                 f"mirror equal {pre_mirror}) of the {label} batch")
         if n_diff or not bitwise:
             raise AssertionError(f"schedule_{kind} kernel differs from its plain walk on {n_diff} rays "
                                  f"(bitwise {bitwise}) of the {label} batch")
+        _check_route(f"schedule_{kind}", label, n_ref, "the packet walk")
         _check_route(f"schedule_{kind}", label, n_trav)
-        if label != "scrambled":
-            out.append({"name": f"schedule_{kind}", "route": "cuda", "source": "mcpt_tpu_torch/csrc/treelet.cu",
-                        "replaces": "mcpt_tpu/ops/pallas/schedule.py:" + ("253" if kind == "closest" else "361"),
-                        "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound_ms, "bound_by": by, "library_ms": None})
+        if label == "camera" and 5 * counts.get("tri_tests", 0) > ref_counts.get("tri_tests", 0):
+            raise AssertionError(f"schedule_closest makes {counts['tri_tests']} triangle tests on camera rays, more "
+                                 f"than a fifth of the packet walk's {ref_counts['tri_tests']}")
+        if label == "scrambled":
+            continue
+        if label == "camera":
+            out.append({"name": "schedule_prepass", "route": "cuda", "source": "mcpt_tpu_torch/csrc/treelet.cu",
+                        "replaces": "none: not a TPU kernel (the XLA pre-pass build_schedule, "
+                                    "mcpt_tpu/ops/pallas/schedule.py:164)",
+                        "launches": 0, "max_abs_err": float((sched.long() - want_sched[0].long()).abs().max()),
+                        "ms": prepass_ms,
+                        "plain_ms": prepass_plain_ms, "bound_ms": pre_bound_ms, "bound_by": pre_by,
+                        "library_ms": None})
+        out.append({"name": f"schedule_{kind}", "route": "cuda", "source": "mcpt_tpu_torch/csrc/treelet.cu",
+                    "replaces": "mcpt_tpu/ops/pallas/schedule.py:" + ("253" if kind == "closest" else "361"),
+                    "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": by, "library_ms": None})
     return out
 
 
-def _walk_bound(kind, counts, rays, scene):
-    """Least time (ms) of the select kernels' own algorithm on this batch:
-    its child-pair row visits, triangle tests and entry keys times their
-    f32 operations over the FP32 rate, or its inputs read once and outputs
+def _prepass_bound(counts, rays, scene, sched):
+    """Least time (ms) of the pre-pass on this batch and what sets it: its
+    (tile, box) interval tests (the superblock cull's, counted by
+    build_schedule_plain(cull=True)) times PREPASS_BOX_OPS over the FP32
+    rate, or the rays and box tables read once and the rows, flags and
+    counts written once over the memory rate."""
+    tl = scene.treelets
+    n_tiles = sched.shape[0]
+    ops = counts["box_tests"] * PREPASS_BOX_OPS
+    nbytes = (32 * rays.shape[0] + 4 * (tl.sb_box.numel() + tl.blk_box.numel()) + 4 * sched.numel()
+              + 5 * n_tiles)
+    ops_s, bytes_s = ops / H100_FP32_OPS, nbytes / H100_BYTES
+    return 1e3 * max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes"
+
+
+def _walk_bound(kind, counts, rays, scene, extra_bytes=0):
+    """Least time (ms) of a treelet walk's own algorithm (select, or the
+    schedule walk with its rows' `extra_bytes`) on this batch: its
+    child-pair row visits, triangle tests and entry keys times their f32
+    operations over the FP32 rate, or its inputs read once and outputs
     written once over the memory rate, whichever is longer."""
-    ops = (counts["pair_visits"] * TRAV_NODE_OPS[kind] + counts["tri_tests"] * TREELET_TRI_OPS[kind]
-           + counts["box_keys"] * TREELET_KEY_OPS)
+    ops = (counts.get("pair_visits", 0) * TRAV_NODE_OPS[kind] + counts.get("tri_tests", 0) * TREELET_TRI_OPS[kind]
+           + counts.get("box_keys", 0) * TREELET_KEY_OPS)
     tl, ts = scene.treelets, scene.trav
     nbytes = (rays.shape[0] * (32 + (16 if kind == "closest" else 1)) + 4 * (ts.tris.numel() + ts.pairs.numel())
-              + 4 * (tl.sb_box.numel() + tl.blk_box.numel() + 5 * tl.row_first.numel()))
+              + 4 * (tl.sb_box.numel() + tl.blk_box.numel() + 5 * tl.row_first.numel()) + extra_bytes)
     return 1e3 * max(ops / H100_FP32_OPS, nbytes / H100_BYTES)
 
 
@@ -1210,7 +1315,7 @@ def small_select_reference():
 
 # With --save-closest-batch PATH, phase 8 saves the rays of the bathroom
 # pass's third closest-hit launch there; with --save-batches DIR, phases 3,
-# 4, 7, 8 and 12 save their timed batches there (for time_closest_batch.py).
+# 4, 7, 8, 11 and 12 save their timed batches there (for time_closest_batch.py).
 SAVE_CLOSEST_BATCH = None
 SAVE_BATCHES = None
 
@@ -1223,7 +1328,7 @@ def main() -> int:
     global SAVE_CLOSEST_BATCH, SAVE_BATCHES
     ap = argparse.ArgumentParser(description="Drive the mcpt_tpu_torch port once on one CUDA card and check it.")
     ap.add_argument("--save-closest-batch", metavar="PATH", help="save phase 8's third closest-hit batch")
-    ap.add_argument("--save-batches", metavar="DIR", help="save the timed batches of phases 3, 4, 7, 8 and 12")
+    ap.add_argument("--save-batches", metavar="DIR", help="save the timed batches of phases 3, 4, 7, 8, 11 and 12")
     args = ap.parse_args()
     if args.save_closest_batch:
         SAVE_CLOSEST_BATCH = os.path.abspath(args.save_closest_batch)

@@ -43,8 +43,9 @@ SIGNATURES = {
     "woop_any": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "traverse_closest": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "traverse_any": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
-    "schedule_closest": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
-    "schedule_any": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "schedule_prepass": [_P] * 3 + [_I] * 6 + [_P] * 4,
+    "schedule_closest": [_P] * 10 + [_I] * 5 + [_P] * 5,
+    "schedule_any": [_P] * 10 + [_I] * 5 + [_P] * 2,
     "select_closest": [_P] * 10 + [_I] * 7 + [_P] * 5,
     "select_any": [_P] * 10 + [_I] * 7 + [_P] * 2,
 }

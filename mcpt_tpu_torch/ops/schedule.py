@@ -4,31 +4,46 @@ walking a precomputed list of treelets.
 Port of mcpt_tpu/ops/pallas/schedule.py (the kernel pair `_closest_kernel`
 / `_any_kernel` and its pre-pass `build_schedule`), over the treelet layout
 of ops/treelets.py:
-  pre-pass (torch, `build_schedule`): per tile of RAY_TILE sorted rays,
-    the bundle's componentwise origin, direction and t intervals; one
+  pre-pass (`build_schedule`: csrc/treelet.cu schedule_prepass_kernel on
+    the card, `build_schedule_plain` here): per tile of RAY_TILE sorted
+    rays, the bundle's componentwise origin, direction and t intervals; one
     interval slab test against every treelet box (the reference's far *
     1.001 where far > 0, strict lo < hi); the hits packed as int32 keys
     (high bits: f32 bits of the entry lower bound; low bits: the treelet
     row), sorted ascending (front to back) and cut to V. A tile with more
     than V live treelets is incomplete: its row is blanked to KEY_MISS and
     its rays go through the exact BVH traversal (ops/traverse.py) instead.
-    The keys equal mcpt_tpu's bit for bit.
-  walk (csrc/treelet.cu, one CUDA block a tile, or the plain torch version
-    here): for each key in order, test every ray of the tile against every
-    triangle of that treelet; stop at KEY_MISS, or, for closest hit, when
-    the next key's lower bound is >= the largest best_t of the tile's
-    tested rays (int compare of f32 bits, both >= 0), or, for any hit, when
-    every tested ray is occluded. The check runs after every treelet (the
-    TPU kernel checked every fourth pair: a scalar-core round trip there,
-    one barrier here).
+    The keys equal mcpt_tpu's bit for bit. The kernel first tests the
+    superblock boxes and skips the treelets of those the bundle misses,
+    which changes nothing (csrc/treelet.cu says why;
+    build_schedule_plain(cull=True) mirrors it).
+  walk (csrc/treelet.cu schedule_kernel, one CUDA block a tile, or the
+    plain torch version here): the tile's keys in order, each treelet
+    visited by the step the select walk takes too (`sub_walks`): every
+    tested ray whose own key for the treelet (its slab test of the
+    treelet's box over [t_lo, min(t_hi, best_t)], for closest hit a lower
+    bound below its best_t; any hit: not occluded) is live walks the
+    treelet's sub-BVH from its root, as the BVH traversal walks the whole
+    tree (ops/traverse.ordered_closest_walk / ordered_any_walk over the
+    treelet's rows of the child-pair table and its triangles, refs made
+    local). Stop at KEY_MISS, or, for closest hit, at the first key whose
+    lower bound is >= the largest best_t of the tile's tested rays (int
+    compare of f32 bits, both >= 0), refreshed after every treelet, or, for
+    any hit, when every tested ray is occluded. The TPU kernel tested every
+    ray of the tile against every triangle of each treelet instead, and
+    checked the cutoff every fourth pair; that walk stays here as the
+    reference walk (closest_hit_schedule_packet_plain /
+    any_hit_schedule_packet_plain, step `visit_treelet`).
 Accept predicates are those of ops/intersect.py: closest hit |det| >= 1e-5,
 t_lo <= t < t_hi, u, v >= 0, 1 - u - v >= 0, the smallest (t, triangle id);
 any hit |det| >= 1e-6, t_lo <= t <= t_hi, 0 <= u <= 1, v >= 0, u + v <= 1.
 Rays with an empty interval or a parked origin (|o| >= 1e29) are not
-tested and miss, as in the other kernel pairs. Moller-Trumbore is
-ops/traverse.py's, single rounded f32 operations in one order, so the
-kernels equal their plain versions, and the BVH traversal's results, bit
-for bit.
+tested and miss, as in the other kernel pairs. Moller-Trumbore and the
+slab tests are ops/traverse.py's, single rounded f32 operations in one
+order, so the kernels equal their plain versions bit for bit. A ray's
+walk culls a box at its running best_t, as the BVH walk does, so the walks
+can differ from the reference walk and from the BVH traversal only in the
+one-ulp box-face case of ROADMAP queue 3 item 4.
 
 No render route runs this pair, in mcpt_tpu or here: `closest_hit_schedule`
 / `any_hit_schedule` are entry points of their own.
@@ -50,11 +65,11 @@ MAX_V = 8192  # the kernels hold a tile's row in shared memory
 KEY_MISS = 2**31 - 1
 ID_MISS = 2**30
 _PREPASS_PAIRS = 1 << 22  # tile x treelet pairs a pre-pass chunk: bounds its [tiles, G] temporaries
-_PLAIN_PAIRS = 1 << 25  # (ray, triangle) pairs a plain-walk chunk: bounds its [tiles, RAY_TILE, C] temporaries
+_PLAIN_PAIRS = 1 << 25  # elements of a plain walk's largest temporary in a chunk
 
 # Launch counts of the kernels, and call counts of their plain versions.
-LAUNCHES = {"closest": 0, "any": 0}
-PLAIN_CALLS = {"closest": 0, "any": 0}
+LAUNCHES = {"closest": 0, "any": 0, "prepass": 0}
+PLAIN_CALLS = {"closest": 0, "any": 0, "prepass": 0}
 
 
 def bits_for(n: int) -> int:
@@ -92,10 +107,10 @@ def _bundle_bounds(rays: torch.Tensor):
             torch.where(valid, t_lo, inf).amin(1), torch.where(valid, t_hi, -inf).amax(1))
 
 
-def _interval_slab(olo, ohi, dlo, dhi, tlo, thi, blo, bhi, valid_box):
-    """Bundle-vs-box test and entry lower bound [tiles, G] (mcpt_tpu
+def _interval_bounds(olo, ohi, dlo, dhi, blo, bhi):
+    """near and far [tiles, L] of the bundles against the boxes (mcpt_tpu
     _interval_slab): interval arithmetic per axis, an axis whose directions
-    change sign unbounded; far * 1.001 where far > 0; hit iff lo < hi."""
+    change sign unbounded; far * 1.001 where far > 0."""
     inf = float("inf")
     near = torch.full((olo.shape[0], blo.shape[0]), -inf, device=olo.device)
     far = torch.full_like(near, inf)
@@ -122,31 +137,63 @@ def _interval_slab(olo, ohi, dlo, dhi, tlo, thi, blo, bhi, valid_box):
         mixed = (~pos & ~neg)[:, None]
         near = torch.maximum(near, torch.where(mixed, -inf, near_a))
         far = torch.minimum(far, torch.where(mixed, inf, far_a))
-    hit = valid_box[None, :] & (torch.maximum(tlo[:, None], near) < torch.minimum(thi[:, None], far))
+    return near, far
+
+
+def _bundle_hits(tlo, thi, near, far):
+    return torch.maximum(tlo[:, None], near) < torch.minimum(thi[:, None], far)
+
+
+def _interval_slab(olo, ohi, dlo, dhi, tlo, thi, blo, bhi, valid_box):
+    """Bundle-vs-box test and entry lower bound [tiles, G] (mcpt_tpu
+    _interval_slab): hit iff max(t_lo, near) < min(t_hi, far)."""
+    near, far = _interval_bounds(olo, ohi, dlo, dhi, blo, bhi)
+    hit = valid_box[None, :] & _bundle_hits(tlo, thi, near, far)
     # max(near, 0) with +0 where XLA's max gives +0 (torch.maximum keeps -0);
     # NaN near is a miss and its key is KEY_MISS either way
     return hit, torch.where(near > 0, near, 0.0)
 
 
-def build_schedule(tl, rays: torch.Tensor, v: int = DEFAULT_V):
+def build_schedule_plain(tl, rays: torch.Tensor, v: int = DEFAULT_V, cull: bool = False,
+                         counts: Optional[dict] = None):
     """Keys i32[n_tiles, v], incomplete bool[n_tiles] and live treelets
     i32[n_tiles] of packed, sorted rays (a multiple of RAY_TILE of them):
     mcpt_tpu's build_schedule bit for bit, the [n_tiles, v/4, 4] row laid
-    out flat. Runs in chunks of tiles; the result does not depend on them."""
+    out flat. Runs in chunks of tiles; the result does not depend on them.
+
+    With `cull`, the kernel's superblock cull: each tile's treelet rows in
+    a superblock that its bundle misses, with a near and a far that are not
+    NaN, are dropped (csrc/treelet.cu says why that drops no hit); the
+    result is the same. With `counts`, adds the (tile, box) interval tests
+    of the algorithm run ("box_tests": every real treelet row, or with cull
+    every real superblock and the real rows of the ones kept)."""
+    PLAIN_CALLS["prepass"] += 1
     g_total = tl.g
     bits_g = bits_for(g_total)
     n_tiles = rays.shape[0] // RAY_TILE
     dev = rays.device
     bb = tl.blk_box.permute(0, 2, 1).reshape(g_total, 8)
     blo, bhi, valid_box = bb[:, 0:3], bb[:, 3:6], bb[:, 6] > 0.0
+    sb = tl.sb_box[:, :tl.ns].T
+    sb_of_row = torch.arange(g_total, device=dev) // tl.s_b
+    real_rows = valid_box.view(tl.ns, tl.s_b).sum(dim=1)
     bounds = _bundle_bounds(rays)
     gid = torch.arange(g_total, dtype=torch.int32, device=dev)
     sched = torch.empty((n_tiles, v), dtype=torch.int32, device=dev)
     n_live = torch.empty((n_tiles,), dtype=torch.int32, device=dev)
+    tests = 0
     step = max(1, _PREPASS_PAIRS // max(g_total, 1))
     for i0 in range(0, n_tiles, step):
         sl = slice(i0, min(n_tiles, i0 + step))
-        hit, entry = _interval_slab(*(b[sl] for b in bounds), blo, bhi, valid_box)
+        b = tuple(x[sl] for x in bounds)
+        hit, entry = _interval_slab(*b, blo, bhi, valid_box)
+        if cull:
+            near, far = _interval_bounds(*b[:4], sb[:, 0:3], sb[:, 3:6])
+            keep = _bundle_hits(b[4], b[5], near, far) | near.isnan() | far.isnan()
+            hit &= keep[:, sb_of_row]
+            tests += keep.numel() + int((keep.long() * real_rows).sum())
+        else:
+            tests += hit.shape[0] * int(real_rows.sum())
         fb = torch.clamp(entry, max=F32_MAX).view(torch.int32)
         key = torch.where(hit, ((fb >> bits_g) << bits_g) | gid, KEY_MISS)
         if g_total < v:  # fewer treelets than the capacity: pad with misses
@@ -158,7 +205,40 @@ def build_schedule(tl, rays: torch.Tensor, v: int = DEFAULT_V):
         # traversal takes the tile
         sched[sl] = torch.where((nl > v)[:, None], KEY_MISS, srt)
         n_live[sl] = nl
+    if counts is not None:
+        counts["box_tests"] = counts.get("box_tests", 0) + tests
     return sched, n_live > v, n_live
+
+
+def build_schedule_kernel(tl, rays: torch.Tensor, v: int = DEFAULT_V):
+    """Launch csrc/treelet.cu's schedule_prepass_kernel; same contract as
+    build_schedule_plain."""
+    from mcpt_tpu_torch.ops._build import check, library
+
+    check_treelet_inputs(tl, rays)
+    if not 0 < v <= MAX_V:
+        raise ValueError(f"v must lie in 1..{MAX_V}")
+    n_tiles = rays.shape[0] // RAY_TILE
+    dev = rays.device
+    sched = torch.empty((n_tiles, v), dtype=torch.int32, device=dev)
+    incomplete = torch.empty((n_tiles,), dtype=torch.bool, device=dev)
+    n_live = torch.empty((n_tiles,), dtype=torch.int32, device=dev)
+    if n_tiles:
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        check(library().schedule_prepass(_ptr(rays), _ptr(tl.sb_box), _ptr(tl.blk_box), n_tiles, tl.ns, tl.nsp,
+                                         tl.s_b, v, bits_for(tl.g), _ptr(sched), _ptr(incomplete), _ptr(n_live),
+                                         stream), "schedule_prepass")
+        LAUNCHES["prepass"] += 1
+    return sched, incomplete, n_live
+
+
+def build_schedule(tl, rays: torch.Tensor, v: int = DEFAULT_V):
+    """The schedule of packed, sorted rays (build_schedule_plain's
+    contract): the pre-pass kernel on CUDA tensors, the plain version on CPU
+    tensors."""
+    if rays.is_cuda:
+        return build_schedule_kernel(tl, rays, v)
+    return build_schedule_plain(tl, rays, v)
 
 
 # ---------------------------------------------------------------------------
@@ -167,7 +247,8 @@ def build_schedule(tl, rays: torch.Tensor, v: int = DEFAULT_V):
 
 
 def plain_chunk(rt: int, c: int) -> int:
-    """Tiles a plain-walk chunk holds."""
+    """Tiles a plain-walk chunk holds when its largest temporary is
+    [tiles, rt, c]."""
     return max(1, _PLAIN_PAIRS // (rt * c))
 
 
@@ -178,6 +259,30 @@ def tile_view(rays: torch.Tensor, n_tiles: int):
     o, t_lo, d, t_hi = ry[..., 0:3], ry[..., 3], ry[..., 4:7], ry[..., 7]
     active = (t_lo < t_hi) & (torch.abs(o) < PARKED).all(dim=-1)
     return o, d, t_lo, t_hi, active
+
+
+def entry_keys(box, o, inv, t_lo, t_hi, bits, active):
+    """Packed keys [n, rt, L] of rays [n, rt] against box tables [n, 8, L]
+    (mcpt_tpu _entry_keys, in the kernels' operation order)."""
+    inf = float("inf")
+    near = torch.full(o.shape[:2] + (box.shape[2],), -inf, device=o.device)
+    far = torch.full_like(near, inf)
+    for a in range(3):
+        oa, ia = o[..., a, None], inv[..., a, None]
+        ta = (box[:, None, a, :] - oa) * ia
+        tb = (box[:, None, 3 + a, :] - oa) * ia
+        near = torch.maximum(near, torch.minimum(ta, tb))
+        far = torch.minimum(far, torch.maximum(ta, tb) * tv.FAR_FUDGE)
+    hit = (box[:, None, 6, :] > 0.0) & (torch.maximum(t_lo[..., None], near) < torch.minimum(t_hi[..., None], far))
+    entry = torch.where(near > 0, near, 0.0)  # +0 for -0: the bits are the key
+    ids = torch.arange(box.shape[2], dtype=torch.int32, device=o.device)
+    key = ((entry.view(torch.int32) >> bits) << bits) | ids
+    return torch.where(hit & active[..., None], key, KEY_MISS)
+
+
+def lower_bound(key, bits):
+    """A key's entry lower bound: its f32 bits with the low `bits` cleared."""
+    return (key >> bits) << bits
 
 
 class HitState:
@@ -215,7 +320,8 @@ class HitState:
 
 def visit_treelet(st: HitState, lanes, g, tl, tris, o, d, t_lo, t_hi, active, counts: Optional[dict]):
     """Test the rays of tiles `lanes` against treelet row g[i] each (the
-    step every kernel of csrc/treelet.cu shares) and update `st`."""
+    reference walks' step, mcpt_tpu's kernels' packet test: every tested
+    ray against every triangle) and update `st`."""
     c = tl.c
     first = tl.row_first[g].long()
     cnt = tl.row_count[g].long()
@@ -253,7 +359,56 @@ def visit_treelet(st: HitState, lanes, g, tl, tris, o, d, t_lo, t_hi, active, co
         counts["tri_tests"] = counts.get("tri_tests", 0) + tests
 
 
-def _walk(tl, tris, rays, sched, closest: bool, counts: Optional[dict]):
+def sub_walks(st: HitState, tiles, g, bits, tl, ts, o, d, inv, t_lo, t_hi, active, counts: Optional[dict]):
+    """The per-ray walks of treelet row g[i] for the rays of tiles[i]: the
+    step of the select and schedule walks (csrc/treelet.cu visit_staged).
+    A tested ray computes its own key for the treelet's box (over [t_lo,
+    min(t_hi, best_t)] for closest hit; any hit: over [t_lo, t_hi], rays not
+    yet occluded only); if it is live (closest hit: its lower bound, `bits`
+    low bits cleared, below the ray's best_t bits) the ray walks the
+    treelet's sub-BVH from its root. o, d, inv, t_lo, t_hi and active are
+    contiguous [n, RAY_TILE] tile views. Returns the entry keys it
+    computed."""
+    box = tl.blk_box[g // tl.s_b, :, g % tl.s_b][:, :, None]
+    bt = st.bt[tiles]
+    if st.closest:
+        act = active[tiles]
+        hi = torch.minimum(t_hi[tiles], bt)
+    else:
+        act = active[tiles] & ~st.found[tiles]
+        hi = t_hi[tiles]
+    own = entry_keys(box, o[tiles], inv[tiles], t_lo[tiles], hi, bits, act)[..., 0]
+    live = own != KEY_MISS
+    if st.closest:
+        live &= lower_bound(own, bits) < bt.view(torch.int32)
+    ti, ri = torch.nonzero(live, as_tuple=True)
+    f, gl = tiles[ti] * RAY_TILE + ri, g[ti]  # the lanes' rays, flat
+    ref = tl.row_root[gl].long()
+    steps = 2 * int(tl.row_pair_count[gl].max()) + 1 if gl.shape[0] else 0
+    args = (ts.pairs, ts.tris, o.reshape(-1, 3)[f], d.reshape(-1, 3)[f], t_lo.reshape(-1)[f],
+            t_hi.reshape(-1)[f], ref, tl.tdepth, steps)
+    base = dict(tbase=tl.row_first[gl].long(), pbase=tl.row_pair_first[gl].long())
+    if st.closest:
+        state = [x.view(-1) for x in (st.bt, st.bid, st.bu, st.bv)]
+        best = [x[f] for x in state]
+        tv.ordered_closest_walk(*args, best, counts, **base)
+        for x, y in zip(state, best):
+            x[f] = y
+    else:
+        found = torch.zeros(ref.shape[0], dtype=torch.bool, device=ref.device)
+        tv.ordered_any_walk(*args, found, counts, **base)
+        st.found.view(-1)[f] = found
+    if counts is not None:
+        counts["treelet_visits"] = counts.get("treelet_visits", 0) + int(tiles.shape[0])
+    return int(act.sum())
+
+
+def _walk(tl, ts, rays, sched, closest: bool, counts: Optional[dict], packet: bool):
+    """Each tile's schedule row front to back (module docstring). The
+    kernel's walk visits a treelet by per-ray walks (sub_walks) and takes
+    the first key only below the cutoff too; the reference walk tests every
+    tested ray against every triangle (visit_treelet), as mcpt_tpu's
+    kernels do."""
     n_tiles, v = sched.shape
     bits_g = bits_for(tl.g)
     gmask = (1 << bits_g) - 1
@@ -261,68 +416,106 @@ def _walk(tl, tris, rays, sched, closest: bool, counts: Optional[dict]):
         return HitState(rays[:, 7], closest).outputs()
     outs = []
     rt = rays.shape[0] // n_tiles
-    step = plain_chunk(rt, tl.c)
+    # the reference's [tiles, rt, c] tests, or the walks' [rays, tdepth] stacks
+    step = plain_chunk(rt, tl.c if packet else tl.tdepth + 1)
     for c0 in range(0, n_tiles, step):
         c1 = min(n_tiles, c0 + step)
-        o, d, t_lo, t_hi, active = tile_view(rays[c0 * rt:c1 * rt], c1 - c0)
+        # contiguous, so that sub_walks reads the lanes of a flat view
+        o, d, t_lo, t_hi, active = (x.contiguous() for x in tile_view(rays[c0 * rt:c1 * rt], c1 - c0))
+        inv = 1.0 / d
         sc = sched[c0:c1]
         st = HitState(t_hi, closest)
-        lanes = torch.arange(c1 - c0, device=rays.device)
+        lanes = torch.nonzero(sc[:, 0] != KEY_MISS)[:, 0]
+        if closest and not packet:
+            lanes = lanes[lower_bound(sc[lanes, 0], bits_g) < st.cut(active, lanes)]
+        keys = 0
         for pos in range(v):
-            lanes = lanes[sc[lanes, pos] != KEY_MISS]
             if lanes.shape[0] == 0:
                 break
-            visit_treelet(st, lanes, (sc[lanes, pos] & gmask).long(), tl, tris, o, d, t_lo, t_hi,
-                         active, counts)
+            g = (sc[lanes, pos] & gmask).long()
+            if packet:
+                visit_treelet(st, lanes, g, tl, ts.tris, o, d, t_lo, t_hi, active, counts)
+            else:
+                keys += sub_walks(st, lanes, g, bits_g, tl, ts, o, d, inv, t_lo, t_hi, active, counts)
             if pos + 1 == v:
                 break
             nxt = sc[lanes, pos + 1]
             if closest:  # front to back: stop once no later treelet can hold a closer hit
-                cont = st.cut(active, lanes) > ((nxt >> bits_g) << bits_g)
+                cont = st.cut(active, lanes) > lower_bound(nxt, bits_g)
             else:
                 cont = st.pending(active, lanes)
             lanes = lanes[(nxt != KEY_MISS) & cont]
         out = st.outputs()
         outs.append(tuple(x.reshape(-1) for x in out) if closest else out.reshape(-1))
+        if counts is not None and not packet:
+            counts["box_keys"] = counts.get("box_keys", 0) + keys
     if closest:
         return tuple(torch.cat(x) for x in zip(*outs))
     return torch.cat(outs)
 
 
-def closest_hit_schedule_plain(tl, tris, rays, sched, counts: Optional[dict] = None):
-    """Plain torch walk of each tile's schedule: (t, tri, u, v) of packed
-    rays in tiles (one schedule row a tile); t = F32_MAX, tri = -1, u = v =
-    0 on a miss. With `counts`, adds the treelet visits and triangle tests."""
+def closest_hit_schedule_plain(tl, ts, rays, sched, counts: Optional[dict] = None):
+    """Plain torch walk (the kernel's) of each tile's schedule over the
+    treelet layout `tl` and the traversal tables `ts`: (t, tri, u, v) of
+    packed rays in tiles (one schedule row a tile); t = F32_MAX, tri = -1,
+    u = v = 0 on a miss. With `counts`, adds the treelet visits, child-pair
+    row visits, triangle tests and (ray, box) entry keys."""
     PLAIN_CALLS["closest"] += 1
-    return _walk(tl, tris, rays, sched, True, counts)
+    return _walk(tl, ts, rays, sched, True, counts, False)
 
 
-def any_hit_schedule_plain(tl, tris, rays, sched, counts: Optional[dict] = None):
-    """Plain torch walk of each tile's schedule: occlusion bool[R]."""
+def any_hit_schedule_plain(tl, ts, rays, sched, counts: Optional[dict] = None):
+    """Plain torch walk (the kernel's) of each tile's schedule: occlusion
+    bool[R]."""
     PLAIN_CALLS["any"] += 1
-    return _walk(tl, tris, rays, sched, False, counts)
+    return _walk(tl, ts, rays, sched, False, counts, False)
 
 
-def check_treelet_inputs(tl, tris, rays):
-    """Raise ValueError unless the tables and rays suit csrc/treelet.cu."""
-    for name, x, dt in (("rays", rays, torch.float32), ("tris", tris, torch.float32),
-                        ("sb_box", tl.sb_box, torch.float32), ("blk_box", tl.blk_box, torch.float32),
-                        ("row_first", tl.row_first, torch.int32), ("row_count", tl.row_count, torch.int32)):
+def closest_hit_schedule_packet_plain(tl, ts, rays, sched, counts: Optional[dict] = None):
+    """The reference walk, faithful to mcpt_tpu's schedule kernels: each
+    key's treelet tested by every tested ray of the tile against every
+    triangle (visit_treelet). With `counts`, adds the treelet visits and
+    triangle tests, which define the packet-test bound; nothing calls it on
+    the way to a kernel."""
+    return _walk(tl, ts, rays, sched, True, counts, True)
+
+
+def any_hit_schedule_packet_plain(tl, ts, rays, sched, counts: Optional[dict] = None):
+    """The reference walk for any hit (closest_hit_schedule_packet_plain)."""
+    return _walk(tl, ts, rays, sched, False, counts, True)
+
+
+def check_treelet_inputs(tl, rays, ts=None):
+    """Raise ValueError unless the rays and the treelet layout, and with
+    `ts` the traversal tables the walks stage, suit csrc/treelet.cu."""
+    f32, i32 = torch.float32, torch.int32
+    arrays = [("rays", rays, f32), ("sb_box", tl.sb_box, f32), ("blk_box", tl.blk_box, f32),
+              ("row_first", tl.row_first, i32), ("row_count", tl.row_count, i32)]
+    if ts is not None:
+        arrays += [("tris", ts.tris, f32), ("pairs", ts.pairs, f32), ("row_pair_first", tl.row_pair_first, i32),
+                   ("row_pair_count", tl.row_pair_count, i32), ("row_root", tl.row_root, i32)]
+    for name, x, dt in arrays:
         if not x.is_cuda or not x.is_contiguous() or x.dtype != dt:
             raise ValueError(f"{name} must be a contiguous {dt} CUDA tensor")
     if rays.dim() != 2 or rays.shape[1] != 8 or rays.shape[0] % RAY_TILE:
         raise ValueError(f"rays must be f32[R, 8] (ops/woop.pack_rays) in tiles of {RAY_TILE}")
-    if tris.dim() != 2 or tris.shape[1] != 12:
-        raise ValueError("tris must be f32[T, 12] (ops/traverse.TraversalSet.tris)")
     if tl.c > 128 or tl.s_b > 128 or tl.nsp > 1024:
         raise ValueError(f"the kernels stage at most 128 triangles a treelet, 128 slots and 1,024 "
                          f"superblocks (got c={tl.c}, s_b={tl.s_b}, nsp={tl.nsp})")
+    if ts is None:
+        return
+    if ts.tris.dim() != 2 or ts.tris.shape[1] != 12:
+        raise ValueError("tris must be f32[T, 12] (ops/traverse.TraversalSet.tris)")
+    if ts.tris.data_ptr() % 16 or ts.pairs.data_ptr() % 16:
+        raise ValueError("tris and pairs must start on 16 bytes (the kernels copy them in bulk)")
+    if not 0 <= tl.tdepth <= tv.STACK_SIZE:
+        raise ValueError(f"treelets deeper than the kernels' stack of {tv.STACK_SIZE} entries")
 
 
-def _launch(kind, tl, tris, rays, sched, outs):
+def _launch(kind, tl, ts, rays, sched, outs):
     from mcpt_tpu_torch.ops._build import check, library
 
-    check_treelet_inputs(tl, tris, rays)
+    check_treelet_inputs(tl, rays, ts)
     n_tiles = rays.shape[0] // RAY_TILE
     if (not sched.is_cuda or sched.dtype != torch.int32 or not sched.is_contiguous()
             or sched.shape[0] != n_tiles or not 0 < sched.shape[1] <= MAX_V):
@@ -331,24 +524,28 @@ def _launch(kind, tl, tris, rays, sched, outs):
         return
     stream = ctypes.c_void_p(torch.cuda.current_stream(rays.device).cuda_stream)
     fn = getattr(library(), f"schedule_{kind}")
-    check(fn(_ptr(rays), _ptr(sched), _ptr(tris), _ptr(tl.row_first), _ptr(tl.row_count), n_tiles,
-             sched.shape[1], bits_for(tl.g), *(_ptr(x) for x in outs), stream), f"schedule_{kind}")
+    check(fn(_ptr(rays), _ptr(sched), _ptr(tl.blk_box), _ptr(ts.tris), _ptr(ts.pairs), _ptr(tl.row_first),
+             _ptr(tl.row_count), _ptr(tl.row_pair_first), _ptr(tl.row_pair_count), _ptr(tl.row_root), n_tiles,
+             sched.shape[1], tl.s_b, bits_for(tl.g), tl.tdepth, *(_ptr(x) for x in outs), stream),
+          f"schedule_{kind}")
     LAUNCHES[kind] += 1
 
 
-def closest_hit_schedule_kernel(tl, tris, rays, sched):
-    """Launch csrc/treelet.cu's schedule_closest_kernel; same contract as the plain version."""
+def closest_hit_schedule_kernel(tl, ts, rays, sched):
+    """Launch csrc/treelet.cu's schedule kernel for closest hit; same
+    contract as closest_hit_schedule_plain."""
     R = rays.shape[0]
     outs = (torch.empty(R, device=rays.device), torch.empty(R, dtype=torch.int32, device=rays.device),
             torch.empty(R, device=rays.device), torch.empty(R, device=rays.device))
-    _launch("closest", tl, tris, rays, sched, outs)
+    _launch("closest", tl, ts, rays, sched, outs)
     return outs
 
 
-def any_hit_schedule_kernel(tl, tris, rays, sched):
-    """Launch csrc/treelet.cu's schedule_any_kernel; same contract as the plain version."""
+def any_hit_schedule_kernel(tl, ts, rays, sched):
+    """Launch csrc/treelet.cu's schedule kernel for any hit; same contract
+    as any_hit_schedule_plain."""
     out = torch.empty(rays.shape[0], dtype=torch.bool, device=rays.device)
-    _launch("any", tl, tris, rays, sched, (out,))
+    _launch("any", tl, ts, rays, sched, (out,))
     return out
 
 
@@ -376,33 +573,34 @@ def scatter_back(out, order, R):
 def _schedule(scene, org, dirn, t_min, t_max, v, closest):
     R = org.shape[0]
     rays, order = sorted_tiles(scene, org, dirn, t_min, t_max)
-    tl, tris = scene.treelets, scene.trav.tris
+    tl, ts = scene.treelets, scene.trav
     sched, incomplete, _ = build_schedule(tl, rays, v)
-    kind = "closest" if closest else "any"
     if rays.is_cuda:
-        out = (closest_hit_schedule_kernel if closest else any_hit_schedule_kernel)(tl, tris, rays, sched)
+        out = (closest_hit_schedule_kernel if closest else any_hit_schedule_kernel)(tl, ts, rays, sched)
     else:
-        out = (closest_hit_schedule_plain if closest else any_hit_schedule_plain)(tl, tris, rays, sched)
-    if bool(incomplete.any()):
-        # the exact BVH traversal over the incomplete tiles' rays; the others
-        # get t_max = 0, which tests nothing
-        inc = incomplete.repeat_interleave(RAY_TILE)
-        fb = rays.clone()
-        fb[:, 7] = torch.where(inc, rays[:, 7], 0.0)
+        out = (closest_hit_schedule_plain if closest else any_hit_schedule_plain)(tl, ts, rays, sched)
+    if bool(incomplete.any()):  # the exact BVH traversal of the incomplete tiles' rays
+        inc = incomplete_rays(incomplete)
         if rays.is_cuda:
             fallback = tv.closest_hit_traverse_kernel if closest else tv.any_hit_traverse_kernel
         else:
             fallback = tv.closest_hit_ordered_plain if closest else tv.any_hit_ordered_plain
-        trav = fallback(scene.trav, fb)
-        out = (tuple(torch.where(inc, a, b) for a, b in zip(trav, out)) if closest
-               else torch.where(inc, trav, out))
+        trav = fallback(ts, rays[inc])
+        for a, b in zip(out, trav) if closest else ((out, trav),):
+            a[inc] = b
     return scatter_back(out, order, R)
+
+
+def incomplete_rays(incomplete):
+    """Indices of the rays of the incomplete tiles."""
+    tiles = torch.nonzero(incomplete)[:, 0]
+    return (tiles[:, None] * RAY_TILE + torch.arange(RAY_TILE, device=tiles.device)).reshape(-1)
 
 
 def closest_hit_schedule(scene, org, dirn, t_min=T_MIN, t_max=F32_MAX, v: int = DEFAULT_V):
     """(t, tri, u, v) of each ray through the schedule-fed walk: the CUDA
-    kernel on CUDA tensors, the plain version on CPU tensors; incomplete
-    tiles through the BVH traversal."""
+    kernels (pre-pass, walk) on CUDA tensors, the plain versions on CPU
+    tensors; incomplete tiles through the BVH traversal."""
     return _schedule(scene, org, dirn, t_min, t_max, v, True)
 
 

@@ -49,7 +49,6 @@ from typing import Optional
 import torch
 
 from mcpt_tpu_torch.ops import schedule as sc
-from mcpt_tpu_torch.ops import traverse as tv
 from mcpt_tpu_torch.ops.intersect import F32_MAX, T_MIN
 from mcpt_tpu_torch.ops.woop import _ptr
 
@@ -61,29 +60,6 @@ LAUNCHES = {"closest": 0, "any": 0}
 PLAIN_CALLS = {"closest": 0, "any": 0}
 
 _NEED, _WALK, _DONE = 0, 1, 2
-
-
-def entry_keys(box, o, inv, t_lo, t_hi, bits, active):
-    """Packed keys [n, rt, L] of rays [n, rt] against box tables [n, 8, L]
-    (mcpt_tpu _entry_keys, in the kernels' operation order)."""
-    inf = float("inf")
-    near = torch.full(o.shape[:2] + (box.shape[2],), -inf, device=o.device)
-    far = torch.full_like(near, inf)
-    for a in range(3):
-        oa, ia = o[..., a, None], inv[..., a, None]
-        ta = (box[:, None, a, :] - oa) * ia
-        tb = (box[:, None, 3 + a, :] - oa) * ia
-        near = torch.maximum(near, torch.minimum(ta, tb))
-        far = torch.minimum(far, torch.maximum(ta, tb) * tv.FAR_FUDGE)
-    hit = (box[:, None, 6, :] > 0.0) & (torch.maximum(t_lo[..., None], near) < torch.minimum(t_hi[..., None], far))
-    entry = torch.where(near > 0, near, 0.0)  # +0 for -0: the bits are the key
-    ids = torch.arange(box.shape[2], dtype=torch.int32, device=o.device)
-    key = ((entry.view(torch.int32) >> bits) << bits) | ids
-    return torch.where(hit & active[..., None], key, KEY_MISS)
-
-
-def _lb(key, bits):
-    return (key >> bits) << bits
 
 
 def _visit_order(tcol, ascending: bool):
@@ -98,36 +74,37 @@ def _walk(tl, ts, rays, closest: bool, counts: Optional[dict], reference: bool):
     """The select loop nest for every tile of packed rays (module
     docstring). The kernels' walk takes a superblock's live slots in
     ascending key, the first one past the cutoff ending it, and each visit
-    runs the per-ray walks (_sub_walks); the reference walk takes them in
-    slot order, skipping those past the cutoff, and each visit tests every
-    tested ray against every triangle (_packet_visit), as mcpt_tpu's
-    kernels do. Each counts the entry keys its kernel computes: the
-    kernels' only over the ns real superblock columns and a superblock's
-    slots up to its last real treelet (pad boxes always miss), mcpt_tpu's
-    over all NSp columns and S_B slots."""
+    runs the per-ray walks (ops/schedule.sub_walks, the step the schedule
+    walk shares); the reference walk takes them in slot order, skipping
+    those past the cutoff, and each visit tests every tested ray against
+    every triangle (ops/schedule.visit_treelet), as mcpt_tpu's kernels do.
+    Each counts the entry keys its kernel computes: the kernels' only over
+    the ns real superblock columns and a superblock's slots up to its last
+    real treelet (pad boxes always miss), mcpt_tpu's over all NSp columns
+    and S_B slots."""
     n_tiles = rays.shape[0] // RAY_TILE
     dev = rays.device
     bits_ns, bits_sb = sc.bits_for(tl.nsp), sc.bits_for(tl.s_b)
     s_b = tl.s_b
     pos = torch.arange(s_b, device=dev)
     if reference:
-        visit, chunk, n_cols = _packet_visit, sc.plain_chunk(RAY_TILE, max(tl.c, tl.nsp)), tl.nsp
+        chunk, n_cols = sc.plain_chunk(RAY_TILE, max(tl.c, tl.nsp)), tl.nsp
         n_slots = torch.full((tl.ns,), s_b, device=dev)
     else:
-        visit, chunk, n_cols = _sub_walks, sc.plain_chunk(RAY_TILE, s_b), tl.ns
+        chunk, n_cols = sc.plain_chunk(RAY_TILE, s_b), tl.ns
         n_slots = ((tl.row_count.view(tl.ns, s_b) > 0).long() * (pos + 1)).amax(dim=1)
     if n_tiles == 0:
         return sc.HitState(rays[:, 7], closest).outputs()
     outs = []
     for c0 in range(0, n_tiles, chunk):
         n = min(n_tiles, c0 + chunk) - c0
-        # contiguous, so that _sub_walks reads the lanes of a flat view
+        # contiguous, so that sub_walks reads the lanes of a flat view
         o, d, t_lo, t_hi, active = (x.contiguous() for x in sc.tile_view(rays[c0 * RAY_TILE:(c0 + n) * RAY_TILE], n))
         inv = 1.0 / d
         st = sc.HitState(t_hi, closest)
         sub = sc.plain_chunk(RAY_TILE, tl.nsp)  # the [tiles, RAY_TILE, NSp] keys a part at a time
-        colmin = torch.cat([entry_keys(tl.sb_box[None, :, :tl.ns], o[i:i + sub], inv[i:i + sub],
-                                       t_lo[i:i + sub], t_hi[i:i + sub], bits_ns, active[i:i + sub]).amin(dim=1)
+        colmin = torch.cat([sc.entry_keys(tl.sb_box[None, :, :tl.ns], o[i:i + sub], inv[i:i + sub],
+                                          t_lo[i:i + sub], t_hi[i:i + sub], bits_ns, active[i:i + sub]).amin(dim=1)
                             for i in range(0, n, sub)])
         keys = int(active.sum()) * n_cols  # (ray, box) entry keys the kernel computes
         state = torch.full((n,), _NEED, dtype=torch.int64, device=dev)
@@ -143,7 +120,7 @@ def _walk(tl, ts, rays, closest: bool, counts: Optional[dict], reference: bool):
                     tk = tcol[walk].gather(1, order[walk])
                     ok = tk != KEY_MISS
                     if closest:
-                        ok &= _lb(tk, bits_sb) < st.cut(active, walk)[:, None]
+                        ok &= sc.lower_bound(tk, bits_sb) < st.cut(active, walk)[:, None]
                     k = torch.where(ok & (pos[None, :] >= cursor[walk, None]), pos, s_b).amin(dim=1)
                     if not reference:  # ascending keys: the first slot at or past the cutoff ends it
                         k = torch.where(k == cursor[walk], k, s_b)
@@ -156,17 +133,17 @@ def _walk(tl, ts, rays, closest: bool, counts: Optional[dict], reference: bool):
                 colmin[need, s] = KEY_MISS
                 stop = m == KEY_MISS
                 if closest:
-                    stop |= _lb(m, bits_ns) >= st.cut(active, need)
+                    stop |= sc.lower_bound(m, bits_ns) >= st.cut(active, need)
                 else:
                     stop |= ~st.pending(active, need)
                 state[need[stop]] = _DONE
                 need, s = need[~stop], s[~stop]
                 # is the superblock live for some tested ray of the tile?
                 box = tl.sb_box[:, s].T[:, :, None]
-                own = entry_keys(box, o[need], inv[need], t_lo[need], t_hi[need], bits_ns, active[need])[..., 0]
+                own = sc.entry_keys(box, o[need], inv[need], t_lo[need], t_hi[need], bits_ns, active[need])[..., 0]
                 keys += int(active[need].sum())
                 if closest:
-                    live = (own != KEY_MISS) & (_lb(own, bits_ns) < st.bt[need].view(torch.int32))
+                    live = (own != KEY_MISS) & (sc.lower_bound(own, bits_ns) < st.bt[need].view(torch.int32))
                 else:
                     live = (own != KEY_MISS) & ~st.found[need]
                 go = live.any(dim=1)
@@ -176,8 +153,8 @@ def _walk(tl, ts, rays, closest: bool, counts: Optional[dict], reference: bool):
                 sbk[need], cursor[need], state[need] = s, 0, _WALK
                 hi = torch.minimum(t_hi[need], st.bt[need]) if closest else t_hi[need]
                 act = active[need] if closest else active[need] & ~st.found[need]
-                tcol[need] = entry_keys(tl.blk_box[s], o[need], inv[need], t_lo[need], hi, bits_sb,
-                                        act).amin(dim=1)
+                tcol[need] = sc.entry_keys(tl.blk_box[s], o[need], inv[need], t_lo[need], hi, bits_sb,
+                                           act).amin(dim=1)
                 order[need] = _visit_order(tcol[need], not reference)
                 keys += int((act.sum(dim=1) * n_slots[s]).sum())
             else:
@@ -185,8 +162,11 @@ def _walk(tl, ts, rays, closest: bool, counts: Optional[dict], reference: bool):
             walk = torch.nonzero(state == _WALK)[:, 0]
             if walk.shape[0] == 0:
                 break
-            slot = order[walk, cursor[walk]]
-            keys += visit(st, walk, sbk[walk], slot, tl, ts, o, d, inv, t_lo, t_hi, active, counts)
+            g = sbk[walk] * s_b + order[walk, cursor[walk]]
+            if reference:
+                sc.visit_treelet(st, walk, g, tl, ts.tris, o, d, t_lo, t_hi, active, counts)
+            else:
+                keys += sc.sub_walks(st, walk, g, bits_sb, tl, ts, o, d, inv, t_lo, t_hi, active, counts)
             cursor[walk] += 1
             if not closest:
                 state[walk[~st.pending(active, walk)]] = _DONE
@@ -199,50 +179,6 @@ def _walk(tl, ts, rays, closest: bool, counts: Optional[dict], reference: bool):
     if closest:
         return tuple(torch.cat(x) for x in zip(*outs))
     return torch.cat(outs)
-
-
-def _sub_walks(st, tiles, s, k, tl, ts, o, d, inv, t_lo, t_hi, active, counts):
-    """The per-ray walks of treelet slot k of superblock s for the rays of
-    `tiles` whose own key for it is live (the kernel's step); returns the
-    entry keys it computed."""
-    g = s * tl.s_b + k
-    box = tl.blk_box[s, :, k][:, :, None]
-    bt = st.bt[tiles]
-    if st.closest:
-        act = active[tiles]
-        hi = torch.minimum(t_hi[tiles], bt)
-    else:
-        act = active[tiles] & ~st.found[tiles]
-        hi = t_hi[tiles]
-    own = entry_keys(box, o[tiles], inv[tiles], t_lo[tiles], hi, sc.bits_for(tl.s_b), act)[..., 0]
-    live = own != KEY_MISS
-    if st.closest:
-        live &= _lb(own, sc.bits_for(tl.s_b)) < bt.view(torch.int32)
-    ti, ri = torch.nonzero(live, as_tuple=True)
-    f, gl = tiles[ti] * RAY_TILE + ri, g[ti]  # the lanes' rays, flat
-    ref = tl.row_root[gl].long()
-    steps = 2 * int(tl.row_pair_count[gl].max()) + 1 if gl.shape[0] else 0
-    args = (ts.pairs, ts.tris, o.reshape(-1, 3)[f], d.reshape(-1, 3)[f], t_lo.reshape(-1)[f],
-            t_hi.reshape(-1)[f], ref, tl.tdepth, steps)
-    base = dict(tbase=tl.row_first[gl].long(), pbase=tl.row_pair_first[gl].long())
-    if st.closest:
-        state = [x.view(-1) for x in (st.bt, st.bid, st.bu, st.bv)]
-        best = [x[f] for x in state]
-        tv.ordered_closest_walk(*args, best, counts, **base)
-        for x, y in zip(state, best):
-            x[f] = y
-    else:
-        found = torch.zeros(ref.shape[0], dtype=torch.bool, device=ref.device)
-        tv.ordered_any_walk(*args, found, counts, **base)
-        st.found.view(-1)[f] = found
-    if counts is not None:
-        counts["treelet_visits"] = counts.get("treelet_visits", 0) + int(tiles.shape[0])
-    return int(act.sum())
-
-
-def _packet_visit(st, tiles, s, k, tl, ts, o, d, inv, t_lo, t_hi, active, counts):
-    sc.visit_treelet(st, tiles, s * tl.s_b + k, tl, ts.tris, o, d, t_lo, t_hi, active, counts)
-    return 0
 
 
 def closest_hit_select_plain(tl, ts, rays, counts: Optional[dict] = None):
@@ -275,23 +211,10 @@ def any_hit_select_packet_plain(tl, ts, rays, counts: Optional[dict] = None):
     return _walk(tl, ts, rays, False, counts, True)
 
 
-def check_select_inputs(tl, ts, rays):
-    """Raise ValueError unless the tables and rays suit the select kernels."""
-    sc.check_treelet_inputs(tl, ts.tris, rays)
-    for name, x, dt in (("pairs", ts.pairs, torch.float32), ("row_pair_first", tl.row_pair_first, torch.int32),
-                        ("row_pair_count", tl.row_pair_count, torch.int32), ("row_root", tl.row_root, torch.int32)):
-        if not x.is_cuda or not x.is_contiguous() or x.dtype != dt:
-            raise ValueError(f"{name} must be a contiguous {dt} CUDA tensor")
-    if ts.tris.data_ptr() % 16 or ts.pairs.data_ptr() % 16:
-        raise ValueError("tris and pairs must start on 16 bytes (the kernels copy them in bulk)")
-    if not 0 <= tl.tdepth <= tv.STACK_SIZE:
-        raise ValueError(f"treelets deeper than the kernels' stack of {tv.STACK_SIZE} entries")
-
-
 def _launch(kind, tl, ts, rays, outs):
     from mcpt_tpu_torch.ops._build import check, library
 
-    check_select_inputs(tl, ts, rays)
+    sc.check_treelet_inputs(tl, rays, ts)
     n_tiles = rays.shape[0] // RAY_TILE
     if n_tiles == 0:
         return

@@ -263,36 +263,63 @@ def _treelet_layouts(scene):
 @pytest.mark.parametrize("layout", ["own", "deep"])
 @pytest.mark.parametrize("n", [1, 129, 70000])
 def test_treelet_kernels_equal_plain_versions_bitwise(stress_cuda, layout, n):
-    """The schedule kernels (v = 512, and v = 64 with blanked rows) and the
-    select kernels against their plain versions on the same sorted tiles."""
+    """The schedule walk kernels (v = 512, v = 64 with blanked rows, and v
+    = 8192, past the default shared memory) and the select kernels against
+    their plain walks on the same sorted tiles."""
     from mcpt_tpu_torch.ops import schedule as S
     from mcpt_tpu_torch.ops import select as SL
     from mcpt_tpu_torch.ops.woop import F32_MAX
 
     scene = _treelet_layouts(stress_cuda[0])[layout]
-    tl, tris = scene.treelets, scene.trav.tris
+    tl, ts = scene.treelets, scene.trav
     o, d, t_max = _rays(scene, n, n + 1)
     o[1::89] = 5.0  # unparked origins on the room's middle planes, along an axis
     d[1::89] = torch.tensor([0.0, 1.0, 0.0], device="cuda")
     for closest in (True, False):
         rays, _ = S.sorted_tiles(scene, o, d, 1e-3, F32_MAX if closest else t_max)
         kind = "closest" if closest else "any"
-        for v in (512, 64):
-            sched, _, _ = S.build_schedule(tl, rays, v)
-            k = getattr(S, f"{kind}_hit_schedule_kernel")(tl, tris, rays, sched)
-            p = getattr(S, f"{kind}_hit_schedule_plain")(tl, tris, rays, sched)
+        for v in (512, 64, 8192):
+            sched, _, _ = S.build_schedule_plain(tl, rays, v)
+            k = getattr(S, f"{kind}_hit_schedule_kernel")(tl, ts, rays, sched)
+            p = getattr(S, f"{kind}_hit_schedule_plain")(tl, ts, rays, sched)
             for a, b in zip(k, p) if closest else ((k, p),):
                 assert torch.equal(a, b), (kind, v)
-        k = getattr(SL, f"{kind}_hit_select_kernel")(tl, scene.trav, rays)
-        p = getattr(SL, f"{kind}_hit_select_plain")(tl, scene.trav, rays)
+        k = getattr(SL, f"{kind}_hit_select_kernel")(tl, ts, rays)
+        p = getattr(SL, f"{kind}_hit_select_plain")(tl, ts, rays)
         for a, b in zip(k, p) if closest else ((k, p),):
             assert torch.equal(a, b), kind
 
 
+@pytest.mark.parametrize("layout", ["own", "deep"])
+@pytest.mark.parametrize("n", [1, 129, 70000])
+def test_prepass_kernel_equals_plain_version_bitwise(stress_cuda, layout, n):
+    """The schedule pre-pass kernel against build_schedule_plain (keys,
+    incomplete tiles, live counts) at v = 64 (blanked rows), 512 and 8192,
+    on sorted tiles and on unsorted ones, closest-hit and any-hit t bounds."""
+    from mcpt_tpu_torch.ops import schedule as S
+    from mcpt_tpu_torch.ops.woop import F32_MAX, pack_rays
+
+    scene = _treelet_layouts(stress_cuda[0])[layout]
+    tl = scene.treelets
+    o, d, t_max = _rays(scene, n, n + 7)
+    o[2::89] = 5.0
+    d[2::89] = torch.tensor([0.0, 0.0, -1.0], device="cuda")
+    batches = [S.sorted_tiles(scene, o, d, 1e-3, F32_MAX)[0], S.sorted_tiles(scene, o, d, 1e-3, t_max)[0],
+               S.pad_tiles(pack_rays(o, d, 1e-3, t_max))]
+    launches = S.LAUNCHES["prepass"]
+    for rays in batches:
+        for v in (64, 512, 8192):
+            got = S.build_schedule_kernel(tl, rays, v)
+            want = S.build_schedule_plain(tl, rays, v)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), v
+    assert S.LAUNCHES["prepass"] == launches + 9
+
+
 def test_treelet_wrappers_route_by_device(stress_cuda):
-    """A CPU tensor takes the plain walks and launches nothing; a CUDA tensor
-    launches the kernels and never takes a plain walk; both answer alike,
-    and alike the BVH traversal."""
+    """A CPU tensor takes the plain versions (pre-pass and walks) and
+    launches nothing; a CUDA tensor launches the kernels and never takes a
+    plain version; both answer alike, and alike the BVH traversal."""
     from mcpt_tpu_torch.ops import schedule as S
     from mcpt_tpu_torch.ops import select as SL
     from mcpt_tpu_torch.ops import traverse
@@ -307,7 +334,9 @@ def test_treelet_wrappers_route_by_device(stress_cuda):
                     SL.closest_hit_select(*args), SL.any_hit_select(*args, t_max.to(dev)))
         for m, (launches, plain) in zip((S, SL), counts):
             ran, idle = (m.LAUNCHES, m.PLAIN_CALLS) if dev == "cuda" else (m.PLAIN_CALLS, m.LAUNCHES)
-            assert ran == {k: (launches if dev == "cuda" else plain)[k] + 1 for k in launches}
+            # one walk a call; the schedule's two calls each run the pre-pass
+            assert ran == {k: (launches if dev == "cuda" else plain)[k] + (2 if k == "prepass" else 1)
+                           for k in launches}
             assert idle == (plain if dev == "cuda" else launches)
     want = (traverse.closest_hit_traverse(cpu.trav, o.cpu(), d.cpu(), 1e-3, traverse.F32_MAX),
             traverse.any_hit_traverse(cpu.trav, o.cpu(), d.cpu(), 1e-3, t_max.cpu()))
@@ -315,6 +344,36 @@ def test_treelet_wrappers_route_by_device(stress_cuda):
         for a, b, w in zip(*(x if isinstance(x, tuple) else (x,) for x in (out["cuda"][i], out["cpu"][i],
                                                                             want[i % 2]))):
             assert torch.equal(a.cpu(), b) and torch.equal(b, w)
+
+
+@pytest.mark.parametrize("layout", ["own", "deep"])
+def test_schedule_entry_points_fall_back_exactly(stress_cuda, layout):
+    """With v at the median live count about half the tiles overflow: the
+    entry points send their rays through traverse.cu and answer as the BVH
+    traversal does, bit for bit."""
+    from mcpt_tpu_torch.ops import schedule as S
+    from mcpt_tpu_torch.ops import traverse
+
+    from mcpt_tpu_torch.render.camera import generate_rays
+
+    scene = _treelet_layouts(stress_cuda[0])[layout]
+    g = torch.Generator(device="cuda").manual_seed(6)
+    o1, d1 = generate_rays(scene.camera, torch.rand((10000, 2), generator=g, device="cuda"),
+                           torch.arange(10000, device="cuda"))  # coherent tiles
+    o2, d2, t2 = _rays(scene, 10000, 5)
+    o, d = torch.cat([o1, o2]), torch.cat([d1, d2])
+    t_max = torch.cat([scene.scale * torch.rand(10000, generator=g, device="cuda"), t2])
+    for kind, tm in (("closest", traverse.F32_MAX), ("any", t_max)):
+        rays = S.sorted_tiles(scene, o, d, 1e-3, tm)[0]
+        v = int(S.build_schedule(scene.treelets, rays, S.MAX_V)[2].median())
+        _, inc, _ = S.build_schedule(scene.treelets, rays, v)
+        assert 0 < int(inc.sum()) < inc.shape[0]
+        launches = traverse.LAUNCHES[kind]
+        got = getattr(S, f"{kind}_hit_schedule")(scene, o, d, 1e-3, tm, v=v)
+        assert traverse.LAUNCHES[kind] == launches + 1
+        want = getattr(traverse, f"{kind}_hit_traverse")(scene.trav, o, d, 1e-3, tm)
+        for a, b in zip(got, want) if kind == "closest" else ((got, want),):
+            assert torch.equal(a, b), kind
 
 
 def test_stress_render_runs_through_select_kernels(stress_cuda, monkeypatch):
@@ -364,5 +423,43 @@ def test_select_kernel_on_deep_treelets_equals_plain_walk_bitwise(D):
         rays = pad_tiles(pack_rays(o, d, 1e-3, tm))
         k = getattr(SL, f"{kind}_hit_select_kernel")(tl, ts, rays)
         p = getattr(SL, f"{kind}_hit_select_plain")(tl, ts, rays)
+        for a, b in zip(k, p) if kind == "closest" else ((k, p),):
+            assert torch.equal(a, b), kind
+
+
+@pytest.mark.parametrize("D", [16, 40])
+def test_schedule_kernels_on_deep_treelets_equal_plain_versions_bitwise(D):
+    """deep_chain's BVH as one treelet D inner nodes deep: the pre-pass
+    kernel and the schedule walk kernels (16-entry stack at D = 16, the
+    128-entry one above) against their plain versions, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
+    import sys
+
+    import numpy as np
+
+    from mcpt_tpu_torch.ops import schedule as S
+    from mcpt_tpu_torch.ops.treelets import build_treelets
+    from mcpt_tpu_torch.ops.woop import F32_MAX, pack_rays
+    from mcpt_tpu_torch.scene import _to
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    try:
+        from torch_parity import deep_chain
+    finally:
+        sys.path.pop(0)
+    ts, o, d, bvh = deep_chain(D, np.random.default_rng(D + 2), device="cuda", with_bvh=True)
+    tl = _to(build_treelets({k: getattr(bvh, k).cpu().numpy() for k in ("lo", "hi", "first", "count", "skip")},
+                            D + 1), torch.device("cuda"))
+    assert tl.tdepth == D
+    t_max = torch.from_numpy(np.random.default_rng(D + 3).uniform(0.5, 4.0, o.shape[0]).astype(np.float32))
+    o, d = torch.from_numpy(o).cuda(), torch.from_numpy(d).cuda()
+    for kind, tm in (("closest", F32_MAX), ("any", t_max.cuda())):
+        rays = S.pad_tiles(pack_rays(o, d, 1e-3, tm))
+        sched = S.build_schedule_kernel(tl, rays)
+        for a, b in zip(sched, S.build_schedule_plain(tl, rays)):
+            assert torch.equal(a, b), kind
+        k = getattr(S, f"{kind}_hit_schedule_kernel")(tl, ts, rays, sched[0])
+        p = getattr(S, f"{kind}_hit_schedule_plain")(tl, ts, rays, sched[0])
         for a, b in zip(k, p) if kind == "closest" else ((k, p),):
             assert torch.equal(a, b), kind

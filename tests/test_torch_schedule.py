@@ -1,15 +1,16 @@
 """The port's schedule-fed treelet traversal (ops/schedule.py) against
 mcpt_tpu's on the CPU.
 
-  * The pre-pass equals mcpt_tpu's build_schedule bit for bit (keys,
-    incomplete tiles, live counts), at v = 512 and at v = 64, where tiles
-    overflow and are blanked.
+  * The pre-pass's plain version equals mcpt_tpu's build_schedule bit for
+    bit (keys, incomplete tiles, live counts), at v = 512 and at v = 64,
+    where tiles overflow and are blanked.
   * The plain walks, through the wrappers with their exact fallback, equal
     the port's BVH traversal bit for bit (same Moller-Trumbore, same
-    (min t, lowest id) rule), and agree with mcpt_tpu's treelet kernel in
-    interpret mode and with the dense brute force: triangle ids on >= 99.9 %
-    of rays (XLA sums the dot products in its own order, so a grazing ray can
-    flip), t within rtol 1e-6 + 1e-6 of the scene size, (u, v) within 1e-4
+    (min t, lowest id) rule), and the kernel's walk and the reference walk
+    agree with mcpt_tpu's treelet kernel in interpret mode and with the
+    dense brute force: triangle ids on >= 99.9 % of rays (XLA sums the dot
+    products in its own order, so a grazing ray can flip), t within rtol
+    1e-6 + 1e-6 of the scene size, (u, v) within 1e-4
     (tests/test_torch_traverse.py's tolerances).
 Soups of <= 3,000 triangles at c = 16, s_b = 8; rays from this module's own
 generators.
@@ -69,7 +70,7 @@ def test_prepass_matches_jax(soup, v, seed):
     o, d, t_max = o[order], d[order], t_max[order]
     jr, _, _ = _pack_rays(jnp.asarray(o), jnp.asarray(d), 1e-4, jnp.asarray(t_max), 128)
     js, ji, jn = jax_build(jax_scene.treelets, jr, 128, v)
-    ps, pi, pn = S.build_schedule(port.treelets, _packed(o, d, t_max), v)
+    ps, pi, pn = S.build_schedule_plain(port.treelets, _packed(o, d, t_max), v)
     np.testing.assert_array_equal(to_numpy(ps), np.asarray(js).reshape(ps.shape))
     np.testing.assert_array_equal(to_numpy(pi), np.asarray(ji))
     np.testing.assert_array_equal(to_numpy(pn), np.asarray(jn))
@@ -81,9 +82,9 @@ def test_prepass_does_not_depend_on_the_chunk(soup, monkeypatch):
 
     _, port, *_ = soup
     rays = _packed(*_rays(3, 1280))
-    want = S.build_schedule(port.treelets, rays, 512)
+    want = S.build_schedule_plain(port.treelets, rays, 512)
     monkeypatch.setattr(S, "_PREPASS_PAIRS", 3 * port.treelets.g)  # 3 tiles a chunk
-    for a, b in zip(S.build_schedule(port.treelets, rays, 512), want):
+    for a, b in zip(S.build_schedule_plain(port.treelets, rays, 512), want):
         assert torch.equal(a, b)
 
 
@@ -113,9 +114,10 @@ def test_wrappers_equal_the_bvh_traversal(soup, v):
 
 
 def test_plain_walks_match_jax_treelet_kernel_and_bruteforce(soup):
-    """The plain walks (no fallback: v = 512 leaves every tile complete)
-    against mcpt_tpu's treelet kernel in interpret mode and the dense
-    brute force."""
+    """The plain walks, the kernels' (per-ray walks of each scheduled
+    treelet's sub-BVH) and the reference (packet) walk, with no fallback (v
+    = 512 leaves every tile complete), against mcpt_tpu's treelet kernel in
+    interpret mode and the dense brute force."""
     from mcpt_tpu.ops.intersect import any_hit_bruteforce, closest_hit_bruteforce
     from mcpt_tpu.ops.pallas.traverse import any_hit_treelets, closest_hit_treelets
     from mcpt_tpu_torch.ops import schedule as S
@@ -128,31 +130,34 @@ def test_plain_walks_match_jax_treelet_kernel_and_bruteforce(soup):
     rays = _packed(o, d, t_max)
     sched, inc, _ = S.build_schedule(port.treelets, rays, 512)
     assert not bool(inc.any())
-    counts = {}
-    t, tri, u, v = S.closest_hit_schedule_plain(port.treelets, port.trav.tris, rays, sched, counts)
-    assert counts["treelet_visits"] > 8 and counts["tri_tests"] > 0
     jargs = (jnp.asarray(o), jnp.asarray(d), 1e-4, jnp.asarray(t_max))
     ref = closest_hit_treelets(jax_scene, *jargs, ray_tile=128, interpret=True, sort_rays=False)
     dense = closest_hit_bruteforce(_dense_scene(v0, e1, e2), *jargs)
-    tri = to_numpy(tri)
-    for name, want in (("treelet kernel", ref), ("brute force", dense)):
-        rtri = np.asarray(want.tri)
-        same = tri == rtri
-        assert same.mean() >= 0.999, f"{name}: {(~same).sum()} ids differ"
-        sel = same & (rtri >= 0)
-        np.testing.assert_allclose(to_numpy(t)[sel], np.asarray(want.t)[sel], rtol=1e-6, atol=1e-6 * SCALE)
-    sel = (tri == np.asarray(ref.tri)) & (tri >= 0)
-    np.testing.assert_allclose(to_numpy(u)[sel], np.asarray(ref.u)[sel], rtol=0, atol=1e-4)
-    np.testing.assert_allclose(to_numpy(v)[sel], np.asarray(ref.v)[sel], rtol=0, atol=1e-4)
-
     t_any = np.minimum(t_max, 3.0).astype(np.float32)
     rays_a = _packed(o, d, t_any)
     sched_a, _, _ = S.build_schedule(port.treelets, rays_a, 512)
-    got = to_numpy(S.any_hit_schedule_plain(port.treelets, port.trav.tris, rays_a, sched_a))[:1024]
-    jargs = (jnp.asarray(o), jnp.asarray(d), 1e-4, jnp.asarray(t_any))
-    for want in (any_hit_treelets(jax_scene, *jargs, ray_tile=128, interpret=True, sort_rays=False),
-                 any_hit_bruteforce(_dense_scene(v0, e1, e2), *jargs)):
-        assert (got == np.asarray(want)).mean() >= 0.999
+    jargs_a = (jnp.asarray(o), jnp.asarray(d), 1e-4, jnp.asarray(t_any))
+    wants_a = (any_hit_treelets(jax_scene, *jargs_a, ray_tile=128, interpret=True, sort_rays=False),
+               any_hit_bruteforce(_dense_scene(v0, e1, e2), *jargs_a))
+    for closest, anyhit in ((S.closest_hit_schedule_plain, S.any_hit_schedule_plain),
+                            (S.closest_hit_schedule_packet_plain, S.any_hit_schedule_packet_plain)):
+        counts = {}
+        t, tri, u, v = closest(port.treelets, port.trav, rays, sched, counts)
+        assert counts["treelet_visits"] > 8 and counts["tri_tests"] > 0
+        tri = to_numpy(tri)
+        for name, want in (("treelet kernel", ref), ("brute force", dense)):
+            rtri = np.asarray(want.tri)
+            same = tri == rtri
+            assert same.mean() >= 0.999, f"{closest.__name__} against the {name}: {(~same).sum()} ids differ"
+            sel = same & (rtri >= 0)
+            np.testing.assert_allclose(to_numpy(t)[sel], np.asarray(want.t)[sel], rtol=1e-6, atol=1e-6 * SCALE)
+        sel = (tri == np.asarray(ref.tri)) & (tri >= 0)
+        np.testing.assert_allclose(to_numpy(u)[sel], np.asarray(ref.u)[sel], rtol=0, atol=1e-4)
+        np.testing.assert_allclose(to_numpy(v)[sel], np.asarray(ref.v)[sel], rtol=0, atol=1e-4)
+
+        got = to_numpy(anyhit(port.treelets, port.trav, rays_a, sched_a))[:1024]
+        for want in wants_a:
+            assert (got == np.asarray(want)).mean() >= 0.999, anyhit.__name__
 
 
 def test_early_exit_and_fallback_cases(soup):
@@ -170,13 +175,13 @@ def test_early_exit_and_fallback_cases(soup):
     rays = _packed(o, d, np.full(128, F32_MAX, np.float32))
     sched, _, n_live = S.build_schedule(port.treelets, rays, 512)
     counts = {}
-    out = S.closest_hit_schedule_plain(port.treelets, port.trav.tris, rays, sched, counts)
+    out = S.closest_hit_schedule_plain(port.treelets, port.trav, rays, sched, counts)
     assert bool((out[1] >= 0).all()) and counts["treelet_visits"] < int(n_live[0])
     blank = torch.full_like(sched, S.KEY_MISS)
     counts = {}
-    out = S.closest_hit_schedule_plain(port.treelets, port.trav.tris, rays, blank, counts)
+    out = S.closest_hit_schedule_plain(port.treelets, port.trav, rays, blank, counts)
     assert bool((out[1] == -1).all()) and counts.get("treelet_visits", 0) == 0
-    assert not bool(S.any_hit_schedule_plain(port.treelets, port.trav.tris, rays, blank).any())
+    assert not bool(S.any_hit_schedule_plain(port.treelets, port.trav, rays, blank).any())
 
 
 def test_kernel_wrappers_refuse_cpu_tensors(soup):
@@ -188,7 +193,9 @@ def test_kernel_wrappers_refuse_cpu_tensors(soup):
     launches = dict(S.LAUNCHES)
     for fn in (S.closest_hit_schedule_kernel, S.any_hit_schedule_kernel):
         with pytest.raises(ValueError, match="CUDA"):
-            fn(port.treelets, port.trav.tris, rays, sched)
+            fn(port.treelets, port.trav, rays, sched)
+    with pytest.raises(ValueError, match="CUDA"):
+        S.build_schedule_kernel(port.treelets, rays, 512)
     assert S.LAUNCHES == launches
 
 

@@ -6,6 +6,7 @@
     python3 time_closest_batch.py --kernel traverse_any /tmp/batches/traverse_any_third.pt ...
     python3 time_closest_batch.py --kernel woop_closest /tmp/batches/woop_closest_camera.pt ...
     python3 time_closest_batch.py --kernel select_closest /tmp/batches/select_closest_camera.pt ...
+    python3 time_closest_batch.py --kernel schedule_closest /tmp/batches/schedule_closest_camera.pt ...
 
 chip_smoke.py saves the packed rays of the batches it times (--save-batches
 DIR; --save-closest-batch PATH saves the bathroom pass's third closest-hit
@@ -15,19 +16,25 @@ default, or an unpacked earlier commit of the repo): bathroom-stress, built
 in memory, for the traversal kernels, and scenes/veach-mis.obj for
 woop_closest (whose chunk mask it computes again from the rays). Then it
 runs that checkout's kernel (--kernel: traverse_closest, the default,
-traverse_any, woop_closest, select_closest or select_any; the select
-kernels take the sorted 128-ray tiles that chip_smoke.py phase 12 saves,
-with the treelet layout the checkout builds) on each batch and prints its time (CUDA
-events, median of 7 runs after a warm-up, as chip_smoke.py times), its hits
-and a checksum of its answer, so that the kernels of two checkouts are
-compared on one batch. Needs one CUDA card; exits 1 without one.
+traverse_any, woop_closest, select_closest, select_any, schedule_closest,
+schedule_any or schedule_prepass; the treelet kernels take the sorted
+128-ray tiles that chip_smoke.py phases 11 and 12 save, with the treelet
+layout the checkout builds; the schedule walks take the rows saved beside
+the tiles, <batch>_rows.pt, so that two checkouts walk the same rows, and
+schedule_prepass times the checkout's build_schedule, the pre-pass a
+schedule entry point runs on the card) on each batch and prints its time
+(CUDA events, median of 7 runs after a warm-up, as chip_smoke.py times),
+its hits and a checksum of its answer, so that the kernels of two
+checkouts are compared on one batch. Needs one CUDA card; exits 1 without
+one.
 """
 import argparse
 import os
 import sys
 import time
 
-KERNELS = ("traverse_closest", "traverse_any", "woop_closest", "select_closest", "select_any")
+KERNELS = ("traverse_closest", "traverse_any", "woop_closest", "select_closest", "select_any", "schedule_closest",
+           "schedule_any", "schedule_prepass")
 
 
 def main() -> int:
@@ -60,8 +67,27 @@ def main() -> int:
         scene = load_scene(os.path.join(root, "scenes", "veach-mis.obj"), device="cuda")
         ws = scene.woop
 
-        def run(rays, mask):
-            return woop.closest_hit_woop_kernel(ws, rays, mask)
+        def run(rays, aux):
+            return woop.closest_hit_woop_kernel(ws, rays, aux)
+    elif args.kernel == "schedule_prepass":
+        from mcpt_tpu_torch.ops import schedule
+
+        (scene,) = chip_smoke.stress_scene(chip_smoke.STRESS_TRIS, 0, ("cuda",))
+
+        def run(rays, aux):
+            return schedule.build_schedule(scene.treelets, rays, chip_smoke.SCHED_V)[0]
+    elif args.kernel.startswith("schedule_"):
+        import inspect
+
+        from mcpt_tpu_torch.ops import schedule
+
+        (scene,) = chip_smoke.stress_scene(chip_smoke.STRESS_TRIS, 0, ("cuda",))
+        kern = getattr(schedule, f"{args.kernel.split('_')[1]}_hit_schedule_kernel")
+        # a checkout before the per-ray walks takes the triangles, a later one the traversal tables
+        tables = scene.trav.tris if "tris" in inspect.signature(kern).parameters else scene.trav
+
+        def run(rays, aux):
+            return kern(scene.treelets, tables, rays, aux)
     elif args.kernel.startswith("select_"):
         import inspect
 
@@ -72,22 +98,29 @@ def main() -> int:
         # a checkout before the per-ray walks takes the triangles, a later one the traversal tables
         tables = scene.trav.tris if "tris" in inspect.signature(kern).parameters else scene.trav
 
-        def run(rays, mask):
+        def run(rays, aux):
             return kern(scene.treelets, tables, rays)
     else:
         (scene,) = chip_smoke.stress_scene(chip_smoke.STRESS_TRIS, 0, ("cuda",))
         kern = tv.closest_hit_traverse_kernel if args.kernel == "traverse_closest" else tv.any_hit_traverse_kernel
 
-        def run(rays, mask):
+        def run(rays, aux):
             return kern(scene.trav, rays)
     torch.cuda.synchronize()
     print(f"scene: {scene.num_tris} triangles, loaded in {time.perf_counter() - t0:.2f} s")
     for path in args.rays:
         rays = torch.load(path).cuda().contiguous()
-        mask = woop.tile_chunk_mask(rays, ws.boxes) if args.kernel == "woop_closest" else None
-        out = run(rays, mask)
+        aux = None  # the Woop chunk mask, or the schedule rows saved beside the tiles
+        if args.kernel == "woop_closest":
+            aux = woop.tile_chunk_mask(rays, ws.boxes)
+        elif args.kernel in ("schedule_closest", "schedule_any"):
+            aux = torch.load(path[:-len(".pt")] + "_rows.pt").cuda().contiguous()
+        out = run(rays, aux)
         torch.cuda.synchronize()
-        ms = chip_smoke.cuda_time_ms(lambda: run(rays, mask))
+        ms = chip_smoke.cuda_time_ms(lambda: run(rays, aux))
+        if args.kernel == "schedule_prepass":  # the rows' keys as ids, KEY_MISS as -1
+            out = out.reshape(-1)
+            out = (None, torch.where(out == 2**31 - 1, -1, out))
         ids = (out[1] if isinstance(out, tuple) else torch.where(out, 0, -1)).long()
         pos = torch.arange(1, ids.shape[0] + 1, device=ids.device)
         print(f"{args.kernel} of {root} on {os.path.basename(path)}: {rays.shape[0]} rays, "
