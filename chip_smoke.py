@@ -43,7 +43,24 @@ Phases, each printing its wall seconds:
      batches, with times;
  13. the bathroom main path of phase 8 through the select kernels
      (MCPT_TREELET_SELECT=smem dispatch), its film against phase 8's;
- 14. phase 9's render through the select kernels, card against CPU.
+ 14. phase 9's render through the select kernels, card against CPU;
+ 15. bench.py's inverse-500 set-up at full size (cornell 256x256, 4 spp,
+     6 bounces, Adam over kd and emitter radiance): 10 steps, each loss,
+     the median step time; one step's loss and gradients at 32x32, card
+     against CPU;
+ 16. a gradient step (kd, ks, radiance, dverts) on veach-mis at 1024x1024,
+     1 spp, 6 bounces through the Woop kernels; at 256x128 (one full chunk
+     of trace_image) the gradients with the kernels equal those with their
+     plain versions bit for bit;
+ 17. a gradient step on bathroom-stress at 1280x720, 1 spp, 4 bounces
+     through the traversal kernels (dverts over every vertex); at 256x128
+     (1 bounce) and on tests/test_grad.py's 4,610-triangle grid scene at 12x12 the
+     kernels' gradients equal the plain versions' bit for bit, and on the
+     grid scene agree with the CPU;
+ 18. the NEE edge term on an occluder scene past 256 triangles (its
+     occlusion tests run woop_any), card against CPU.
+Phases 15-18 also print their peak device memory and the card, and the
+line after phase 18 the kernel launches of one gradient step.
 The line before the last is a JSON object with one entry per kernel (the
 eight that replace TPU kernels, and the schedule pre-pass, which replaces
 none); the last line is {"ok": true, "device": {...}}. Any failure raises
@@ -74,6 +91,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 VEACH = os.path.join(ROOT, "scenes", "veach-mis.obj")
+CORNELL = os.path.join(ROOT, "scenes", "cornell-box.obj")
 WIDTH = HEIGHT = 1024
 MAX_BOUNCES = 24
 PASSES = 2
@@ -134,6 +152,18 @@ PREPASS_BOX_OPS = 93
 # in each batch of phases 11-12, 1 pixel in phase 13's two passes), so
 # more than this is a fault.
 ROUTE_DIFF_MAX = 16
+# the differentiable path: bench.py's inverse-500 set-up (cornell 256x256,
+# 4 spp, 6 bounces), 10 of its steps; gradient steps at 6 bounces on veach
+# and 4 on bathroom, 1 spp; the bitwise kernel-vs-plain comparisons at
+# one full chunk of trace_image (256 x 128 = DEFAULT_CHUNK_RAYS rays),
+# on bathroom at 1 bounce (a primary and a look-ahead closest hit and a
+# shadow any hit: the plain BVH walks take seconds a call there); edge
+# samples per edge in phase 18
+INV_RES, INV_SPP, INV_BOUNCES, INV_STEPS = 256, 4, 6, 10
+GRAD_BOUNCES, BATH_GRAD_BOUNCES = 6, 4
+CHUNK_W, CHUNK_H, BATH_CHUNK_BOUNCES = 256, 128, 1
+EDGE_SAMPLES = 32
+CARD = "not read yet"  # nvidia-smi's name and power limit, set by phase 1
 
 
 def phase(name):
@@ -427,6 +457,16 @@ def _read_counts():
     return launches, plain
 
 
+def _check_family(label, family, launches, plain):
+    """Fail unless every kernel of `family` launched, no kernel of another
+    family did and no plain version ran."""
+    mine = {k: v for k, v in launches.items() if k.startswith(family + "_")}
+    others = {k: v for k, v in launches.items() if not k.startswith(family + "_")}
+    if min(mine.values()) == 0 or max(others.values()) != 0 or max(plain.values()) != 0:
+        raise AssertionError(f"{label} did not run through the {family} kernels alone: {launches}, "
+                             f"plain {plain}")
+
+
 def drive_main_path(scene, label, width, height, passes, family):
     """Render `passes` passes of 1 spp at 24 bounces with every count set to
     0 first; fail unless the kernels of `family` launched, no other kernel
@@ -449,11 +489,7 @@ def drive_main_path(scene, label, width, height, passes, family):
     print(f"{label} {width}x{height}: launches {launches}, plain calls {plain}, traced rays "
           f"{st['traced_rays']:.0f}, {st['mrays_per_s']:.2f} Mrays/s, nan_scrubbed {st['nan_scrubbed']}, "
           f"mean RGB {mean}")
-    mine = {k: v for k, v in launches.items() if k.startswith(family + "_")}
-    others = {k: v for k, v in launches.items() if not k.startswith(family + "_")}
-    if min(mine.values()) == 0 or max(others.values()) != 0 or max(plain.values()) != 0:
-        raise AssertionError(f"{label} main path did not run through the {family} kernels alone: "
-                             f"{launches}, plain {plain}")
+    _check_family(f"{label} main path", family, launches, plain)
     if st["nan_scrubbed"] != 0 or not all(np.isfinite(mean)) or min(mean) <= 0:
         raise AssertionError(f"bad film: nan_scrubbed {st['nan_scrubbed']}, mean {mean}")
     with tempfile.TemporaryDirectory() as tmp:
@@ -1313,6 +1349,399 @@ def small_select_reference():
         intersect.TREELET_SELECT = "vote"
 
 
+# ---------------------------------------------------------------------------
+# the differentiable path
+# ---------------------------------------------------------------------------
+
+def write_occluder_scene(dirp, floor_n=12):
+    """tests/test_edge.py's occluder scene (a 0.3-wide quad occluder at
+    y = 0.75 between a 0.2-wide area light at y = 1.5 and a diffuse 2x2
+    floor, outside the 16x16 camera's view) with the floor split into
+    floor_n x floor_n cells: 2 floor_n^2 + 4 triangles, above the 256 of
+    the dense route from floor_n = 12. Writes occ.obj/.mtl/.xml under
+    `dirp`; returns the OBJ's path."""
+    n = floor_n
+    obj = ["mtllib occ.mtl"]
+    obj += [f"v {2.0 * i / n:.6f} 0.0 {2.0 * j / n:.6f}" for j in range(n + 1) for i in range(n + 1)]
+    obj += [f"v {x} {y} {z}" for x, y, z in (
+        (0.85, 0.75, 0.85), (1.15, 0.75, 0.85), (1.15, 0.75, 1.15), (0.85, 0.75, 1.15),  # occluder
+        (0.9, 1.5, 0.9), (1.1, 1.5, 0.9), (1.1, 1.5, 1.1), (0.9, 1.5, 1.1))]  # light
+    obj += ["vn 0.0 1.0 0.0", "vn 0.0 -1.0 0.0", "usemtl white"]
+    for j in range(n):
+        for i in range(n):
+            a = j * (n + 1) + i + 1
+            b, c, d = a + 1, a + n + 2, a + n + 1
+            obj += [f"f {a}//1 {c}//1 {b}//1", f"f {a}//1 {d}//1 {c}//1"]
+    o = (n + 1) * (n + 1) + 1
+    obj += ["usemtl occ", f"f {o}//2 {o + 2}//2 {o + 1}//2", f"f {o}//2 {o + 3}//2 {o + 2}//2"]
+    li = o + 4
+    obj += ["usemtl light", f"f {li}//2 {li + 2}//2 {li + 1}//2", f"f {li}//2 {li + 3}//2 {li + 2}//2"]
+    with open(os.path.join(dirp, "occ.obj"), "w") as f:
+        f.write("\n".join(obj) + "\n")
+    with open(os.path.join(dirp, "occ.mtl"), "w") as f:
+        f.write("newmtl white\nKd 0.75 0.75 0.75\n\nnewmtl occ\nKd 0.6 0.6 0.6\n\n"
+                "newmtl light\nKd 0.5 0.5 0.5\n")
+    with open(os.path.join(dirp, "occ.xml"), "w") as f:
+        f.write('<camera type="perspective" width="16" height="16" fovy="40">\n'
+                '  <eye x="1.0" y="0.45" z="-0.9"/>\n  <lookat x="1.0" y="0.0" z="0.9"/>\n'
+                '  <up x="0.0" y="1.0" z="0.0"/>\n</camera>\n'
+                '<light mtlname="light" radiance="30,30,30"/>\n')
+    return os.path.join(dirp, "occ.obj")
+
+
+# the light of the occluder scenes: q0, edge u, edge v, radiance
+OCC_LIGHT = dict(light_q0=(0.9, 1.5, 0.9), light_eu=(0.2, 0.0, 0.0), light_ev=(0.0, 0.0, 0.2),
+                 light_le=(30.0, 30.0, 30.0))
+
+
+def write_grid_scene(dirp, n=48):
+    """tests/test_grad.py's grid scene: an n x n floor grid of shared
+    vertices (2 n^2 triangles, 4,610 with the light at n = 48, so the BVH
+    traversal route) lit by an overhead quad light. Writes
+    grid.obj/.mtl/.xml under `dirp`; returns the OBJ's path."""
+    obj = ["mtllib grid.mtl"]
+    obj += [f"v {i / n:.6f} 0.0 {j / n:.6f}" for j in range(n + 1) for i in range(n + 1)]
+    obj += [f"v {x} 0.8 {z}" for x, z in ((0.3, 0.3), (0.7, 0.3), (0.7, 0.7), (0.3, 0.7))]
+    obj += ["vn 0.0 1.0 0.0", "vn 0.0 -1.0 0.0", "usemtl white"]
+    for j in range(n):
+        for i in range(n):
+            a = j * (n + 1) + i + 1
+            b, c, d = a + 1, a + n + 2, a + n + 1
+            obj += [f"f {a}//1 {c}//1 {b}//1", f"f {a}//1 {d}//1 {c}//1"]
+    li = (n + 1) * (n + 1) + 1
+    obj += ["usemtl light", f"f {li}//2 {li + 1}//2 {li + 2}//2", f"f {li}//2 {li + 2}//2 {li + 3}//2"]
+    with open(os.path.join(dirp, "grid.obj"), "w") as f:
+        f.write("\n".join(obj) + "\n")
+    with open(os.path.join(dirp, "grid.mtl"), "w") as f:
+        f.write("newmtl white\nKd 0.75 0.75 0.75\n\nnewmtl light\nKd 0.65 0.65 0.65\n")
+    with open(os.path.join(dirp, "grid.xml"), "w") as f:
+        f.write('<camera type="perspective" width="64" height="64" fovy="45">\n'
+                '  <eye x="0.5" y="0.55" z="-0.9"/>\n  <lookat x="0.5" y="0.25" z="0.3"/>\n'
+                '  <up x="0.0" y="1.0" z="0.0"/>\n</camera>\n'
+                '<light mtlname="light" radiance="30,30,30"/>\n')
+    return os.path.join(dirp, "grid.obj")
+
+
+def grad_phase(name):
+    """phase(name), also printing the phase's peak device memory and the card."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*a, **k):
+            import torch
+
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            print(f"[phase] {name}: {time.perf_counter() - t0:.2f} s, peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, card: {CARD}", flush=True)
+            return out
+        return run
+    return wrap
+
+
+def _sized(scene, width, height):
+    import dataclasses
+
+    return dataclasses.replace(scene, camera=dataclasses.replace(scene.camera, width=width, height=height))
+
+
+def _finite_grads(label, loss, g):
+    import torch
+
+    bad = {k: int((~torch.isfinite(v)).sum()) for k, v in g.tensors().items()}
+    if not math.isfinite(float(loss)) or any(bad.values()):
+        raise AssertionError(f"{label}: loss {float(loss)}, non-finite gradient entries {bad}")
+
+
+def _same_grads(label, a, b):
+    """Loss and every gradient field bit for bit."""
+    import torch
+
+    (la, ga), (lb, gb) = a, b
+    same = {k: torch.equal(v, getattr(gb, k)) for k, v in ga.tensors().items()}
+    print(f"{label}: loss {float(la)!r} / {float(lb)!r}, fields bitwise equal {same}")
+    if not torch.equal(la, lb) or not all(same.values()):
+        raise AssertionError(f"{label}: the kernel route's gradients differ from the plain route's")
+
+
+def _close_grads(label, card, cpu, loss_atol=0.0):
+    """Card against CPU: the loss within rtol 1e-3 (plus loss_atol), every
+    gradient field within rtol 1e-3 plus atol 2e-3 x its largest |CPU
+    value| (tests/test_torch_grad.py's tolerance against JAX)."""
+    import torch
+
+    (la, ga), (lb, gb) = card, cpu
+    la, lb = float(la), float(lb)
+    ok = abs(la - lb) <= 1e-3 * abs(lb) + loss_atol
+    worst = {}
+    for k, v in gb.tensors().items():
+        a = getattr(ga, k).cpu()
+        worst[k] = float((a - v).abs().max())
+        ok &= bool(torch.allclose(a, v, rtol=1e-3, atol=2e-3 * float(v.abs().max())))
+    print(f"{label}: loss card {la!r}, cpu {lb!r}; max |card - cpu| by field {worst}")
+    if not ok:
+        raise AssertionError(f"{label}: card and CPU gradients disagree")
+
+
+def _kernel_vs_plain(label, mod, swaps, scene, width, height, bounces, key):
+    """loss_and_grad on `scene` at width x height through `mod`'s kernels,
+    then through their plain versions, deterministic algorithms on; fail
+    unless both kernels launched in the first and the two agree bit for
+    bit. Returns the kernel run's (loss, grads)."""
+    import torch
+
+    from mcpt_tpu_torch.diff.grad import extract_params, loss_and_grad
+    from mcpt_tpu_torch.ops.plain_route import deterministic, plain_route
+
+    sc = _sized(scene, width, height)
+    p = extract_params(sc)
+    black = torch.zeros((height, width, 3), device=sc.device)
+    with deterministic():
+        before = dict(mod.LAUNCHES)
+        t0 = time.perf_counter()
+        k = loss_and_grad(p, sc, black, key, 1, bounces)
+        float(k[0])  # waits for the step
+        t1 = time.perf_counter()
+        launched = {c: mod.LAUNCHES[c] - before[c] for c in before}
+        with plain_route(mod, swaps):
+            pl = loss_and_grad(p, sc, black, key, 1, bounces)
+            float(pl[0])
+        t2 = time.perf_counter()
+    if min(launched.values()) == 0:
+        raise AssertionError(f"{label}: a kernel did not launch: {launched}")
+    _same_grads(f"{label}, max_bounces {bounces} ({launched} launches; kernels {t1 - t0:.2f} s, plain "
+                f"{t2 - t1:.2f} s)", k, pl)
+    return k
+
+
+def _grad_step_counts(label, family, fn):
+    """Run fn() (a gradient step) with every count set to 0 first; fail
+    unless the kernels of `family` launched (none of another family, no
+    plain version). Returns (fn's result, launches, seconds)."""
+    import torch
+
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches, plain = _read_counts()
+    print(f"{label}: {dt:.3f} s, launches {launches}, plain calls {plain}")
+    _check_family(label, family, launches, plain)
+    return out, launches, dt
+
+
+@grad_phase("15 inverse-500 configuration")
+def inverse_phase():
+    """bench.py's inverse-500 set-up at full size (cornell 256x256, 4 spp,
+    6 bounces): the target rendered at the true parameters with key 7; kd
+    of every material and the emitter's radiance free, kd starting at 0.5
+    and radiance at the target's brightest pixel; Adam at 2e-2, radiance at
+    0.2. Ten steps, each loss printed, the median of steps 2-10; then one
+    step's loss and gradients at 32x32, card against CPU."""
+    import torch
+
+    from mcpt_tpu_torch.diff.grad import SceneParams, extract_params, mse_loss_dual, render_image, value_and_grad
+    from mcpt_tpu_torch.diff.inverse import make_inverse_step
+    from mcpt_tpu_torch.io.obj import load_scene
+    from mcpt_tpu_torch.utils.rng import fold_in, prng_key
+
+    key = prng_key(7)
+
+    def setup(device, res):
+        scene = _sized(load_scene(CORNELL, device=device), res, res)
+        p0 = extract_params(scene)
+        with torch.no_grad():
+            target = render_image(p0, scene, key, INV_SPP, INV_BOUNCES)
+        emit = (torch.linalg.norm(p0.radiance, dim=-1, keepdim=True) > 0.01).float()
+        mask = SceneParams(kd=torch.ones_like(p0.kd), ks=torch.zeros_like(p0.ks),
+                           radiance=emit * torch.ones_like(p0.radiance))
+        rad0 = target.reshape(-1, 3).amax(dim=0)
+        guess = SceneParams(kd=torch.full_like(p0.kd, 0.5), ks=p0.ks,
+                            radiance=torch.where(p0.radiance > 0, rad0[None, :], 0.0))
+        return scene, target, mask, guess
+
+    scene, target, mask, guess = setup("cuda", INV_RES)
+    init, step_fn = make_inverse_step(scene, target, spp=INV_SPP, max_bounces=INV_BOUNCES, param_mask=mask,
+                                      radiance_lr=0.2)
+    state = init(guess)
+    _reset_counts()
+    times, losses = [], []
+    for i in range(INV_STEPS):
+        t0 = time.perf_counter()
+        state, loss = step_fn(state, key)
+        losses.append(float(loss))  # waits for the step
+        times.append(time.perf_counter() - t0)
+        print(f"inverse step {i}: loss {losses[-1]!r}, {times[-1]:.3f} s")
+    launches, plain = _read_counts()
+    scrubbed = int(state.scrubbed)
+    med = sorted(times[1:])[len(times[1:]) // 2]
+    print(f"inverse-500 {INV_RES}x{INV_RES}, {INV_SPP} spp, {INV_BOUNCES} bounces: median step (2-{INV_STEPS}) "
+          f"{med:.3f} s, first step {times[0]:.3f} s; scrubbed gradient entries {scrubbed}; launches {launches} "
+          f"(the dense route), plain calls {plain}")
+    finite = all(bool(torch.isfinite(v).all()) for v in state.params.tensors().values())
+    if not all(math.isfinite(x) for x in losses) or scrubbed or not finite:
+        raise AssertionError(f"inverse steps: losses {losses}, scrubbed {scrubbed}, finite params {finite}")
+    if max(launches.values()) or max(plain.values()):
+        raise AssertionError(f"cornell (32 triangles) should take the dense route: {launches}, {plain}")
+
+    res = []
+    for dev in ("cuda", "cpu"):
+        sc, tg, _, gs = setup(dev, 32)
+        res.append((value_and_grad(mse_loss_dual, gs, sc, tg, fold_in(key, 0), INV_SPP, INV_BOUNCES),
+                    float(torch.mean(tg * tg))))
+    _finite_grads("inverse 32x32 card", *res[0][0])
+    _close_grads("inverse step 32x32, card vs CPU", res[0][0], res[1][0], loss_atol=1e-3 * res[1][1])
+    return med
+
+
+@grad_phase("16 gradients through the Woop kernels")
+def woop_grad_phase():
+    """loss_and_grad (kd, ks, radiance, dverts) on veach-mis at 1024x1024,
+    1 spp, 6 bounces, against a black target, through the Woop pair; then
+    at 256x128, one full chunk, the same through the kernels and through
+    their plain versions, bit for bit (deterministic algorithms on)."""
+    import torch
+
+    from mcpt_tpu_torch.diff.grad import extract_params, loss_and_grad
+    from mcpt_tpu_torch.io.obj import load_scene
+    from mcpt_tpu_torch.ops import woop
+    from mcpt_tpu_torch.ops.plain_route import WOOP_PLAIN
+    from mcpt_tpu_torch.utils.rng import prng_key
+
+    base = load_scene(VEACH, device="cuda")
+    scene = _sized(base, WIDTH, HEIGHT)
+    p0 = extract_params(scene)
+    black = torch.zeros((HEIGHT, WIDTH, 3), device="cuda")
+    (loss, g), launches, dt = _grad_step_counts(
+        f"veach {WIDTH}x{HEIGHT} gradient step", "woop",
+        lambda: loss_and_grad(p0, scene, black, prng_key(0), 1, GRAD_BOUNCES))
+    _finite_grads("veach gradient", loss, g)
+    emit = torch.linalg.norm(p0.radiance, dim=-1) > 0.01
+    nz = int((g.radiance[emit].abs().amax(dim=-1) > 0).sum())
+    print(f"veach: loss {float(loss)!r}; emitters with a nonzero radiance gradient {nz} of {int(emit.sum())}; "
+          f"|grad| max kd {float(g.kd.abs().max()):.4g}, ks {float(g.ks.abs().max()):.4g}, radiance "
+          f"{float(g.radiance.abs().max()):.4g}, dverts {float(g.dverts.abs().max()):.4g}")
+    if nz < int(emit.sum()):
+        raise AssertionError("an emitter has no radiance gradient")
+
+    _kernel_vs_plain(f"veach {CHUNK_W}x{CHUNK_H}, Woop kernels vs plain versions", woop, WOOP_PLAIN, base,
+                     CHUNK_W, CHUNK_H, GRAD_BOUNCES, prng_key(0))
+    return launches, dt
+
+
+@grad_phase("17 gradients through the traversal kernels")
+def traversal_grad_phase(bath):
+    """loss_and_grad on bathroom-stress at 1280x720, 1 spp, 4 bounces, with
+    dverts over its 2,999,094 vertices, through the traversal pair; then
+    the pair against its plain versions bit for bit at 256x128 (one full
+    chunk, 1 bounce) and on tests/test_grad.py's 4,610-triangle grid scene at 12x12
+    (1 spp, 2 bounces), and there the card against the CPU."""
+    import torch
+
+    from mcpt_tpu_torch.diff.grad import extract_params, loss_and_grad
+    from mcpt_tpu_torch.io.obj import load_scene
+    from mcpt_tpu_torch.ops import traverse
+    from mcpt_tpu_torch.ops.plain_route import TRAVERSE_PLAIN
+    from mcpt_tpu_torch.utils.rng import prng_key
+
+    scene = _sized(bath, BATH_W, BATH_H)
+    p0 = extract_params(scene)
+    if p0.dverts is None:
+        raise AssertionError("bathroom-stress carries no shared-vertex ids")
+    black = torch.zeros((BATH_H, BATH_W, 3), device="cuda")
+    (loss, g), launches, dt = _grad_step_counts(
+        f"bathroom {BATH_W}x{BATH_H} gradient step", "traverse",
+        lambda: loss_and_grad(p0, scene, black, prng_key(0), 1, BATH_GRAD_BOUNCES))
+    _finite_grads("bathroom gradient", loss, g)
+    print(f"bathroom: loss {float(loss)!r}, dverts {tuple(g.dverts.shape)}, |grad| max kd "
+          f"{float(g.kd.abs().max()):.4g}, radiance {float(g.radiance.abs().max()):.4g}, dverts "
+          f"{float(g.dverts.abs().max()):.4g}, nonzero dverts rows {int((g.dverts.abs().amax(-1) > 0).sum())}")
+
+    _kernel_vs_plain(f"bathroom {CHUNK_W}x{CHUNK_H}, traversal kernels vs plain versions", traverse,
+                     TRAVERSE_PLAIN, bath, CHUNK_W, CHUNK_H, BATH_CHUNK_BOUNCES, prng_key(0))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = write_grid_scene(tmp)
+        grids = [load_scene(path, device=dev) for dev in ("cuda", "cpu")]
+    if grids[0].num_tris != 4610 or grids[0].trav is None:
+        raise AssertionError(f"grid scene: {grids[0].num_tris} triangles, traversal tables {grids[0].trav}")
+    out = [_kernel_vs_plain("grid 12x12, traversal kernels vs plain versions", traverse, TRAVERSE_PLAIN,
+                            grids[0], 12, 12, 2, prng_key(5))]
+    sc = _sized(grids[1], 12, 12)
+    out.append(loss_and_grad(extract_params(sc), sc, torch.zeros((12, 12, 3)), prng_key(5), 1, 2))
+    _close_grads("grid 12x12, card vs CPU", out[0], out[1])
+    return launches, dt
+
+
+@grad_phase("18 edge term on the card")
+def edge_phase():
+    """nee_visibility_edge_grad (silhouette tables, face orientation,
+    mutual occlusion through any_hit) on tests/test_edge.py's occluder
+    scene with its floor split into 12x12 cells (292 triangles: the Woop
+    route), card against CPU on the same inputs; then make_nee_edge_term's
+    gradient on the card."""
+    import torch
+
+    from mcpt_tpu_torch.diff.edge import build_silhouette_tables, make_nee_edge_term, nee_visibility_edge_grad
+    from mcpt_tpu_torch.diff.grad import extract_params, render_image
+    from mcpt_tpu_torch.io.obj import load_scene
+    from mcpt_tpu_torch.ops.intersect import closest_hit
+    from mcpt_tpu_torch.render.camera import generate_rays
+    from mcpt_tpu_torch.utils.rng import prng_key
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = write_occluder_scene(tmp, 12)
+        scenes = [load_scene(path, device=dev) for dev in ("cuda", "cpu")]
+    cpu = scenes[1]
+    if cpu.num_tris <= 256 or scenes[0].woop is None:
+        raise AssertionError(f"occluder scene: {cpu.num_tris} triangles, not on the Woop route")
+    # tests/test_edge.py's inputs: pixel-centre hits on the floor, the
+    # adjoint of the left half's mean, the pixels where it is not zero
+    H, W = cpu.camera.height, cpu.camera.width
+    pidx = torch.arange(H * W)
+    org, dirn = generate_rays(cpu.camera, torch.full((H * W, 2), 0.5), pidx)
+    hit = closest_hit(cpu, org, dirn)
+    keep = hit.valid & (cpu.geom.mat_id[torch.clamp(hit.tri, min=0).long()] == 0) & (pidx % W < W // 2)
+    x = (org + torch.where(hit.valid, hit.t, 0.0)[:, None] * dirn)[keep]
+    n_x = torch.tensor([0.0, 1.0, 0.0]).expand_as(x)
+    kd = torch.full_like(x, 0.75)
+    weight = torch.full_like(x, 1.0 / (3.0 * float((pidx % W < W // 2).sum())))
+    grads = []
+    for sc in scenes:
+        dev = sc.device
+        verts, edges, nf, opp = build_silhouette_tables(sc)
+        _reset_counts()
+        grads.append(nee_visibility_edge_grad(
+            x.to(dev), n_x.to(dev), kd.to(dev), weight.to(dev), verts, edges, **OCC_LIGHT,
+            n_samples=EDGE_SAMPLES, edge_nf=nf, edge_opp=verts[torch.clamp(opp, min=0).long()], scene=sc))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            launches = _read_counts()[0]
+    a, b = grads[0].cpu(), grads[1]
+    print(f"edge term: {x.shape[0]} shading points, {edges.shape[0]} edges, {EDGE_SAMPLES} samples an edge; "
+          f"launches on the card {launches}; max |grad| cpu {float(b.abs().max()):.4g}, max |card - cpu| "
+          f"{float((a - b).abs().max()):.4g}")
+    if launches["woop_any"] == 0:
+        raise AssertionError("the edge term's occlusion tests did not run woop_any")
+    if not torch.isfinite(a).all() or float(b.abs().max()) == 0 or not torch.allclose(
+            a, b, rtol=1e-3, atol=1e-3 * float(b.abs().max())):
+        raise AssertionError("edge term: card and CPU disagree (rtol 1e-3, atol 1e-3 x max)")
+
+    sc = scenes[0]
+    p0 = extract_params(sc)
+    with torch.no_grad():
+        target = render_image(p0, sc, prng_key(0), 2, 2)
+    term = make_nee_edge_term(sc, target, **OCC_LIGHT, n_samples=16, est_spp=1)
+    g = term(p0, prng_key(0))
+    if not torch.isfinite(g.dverts).all():
+        raise AssertionError("make_nee_edge_term: non-finite vertex gradient")
+    print(f"make_nee_edge_term on the card: max |dverts grad| {float(g.dverts.abs().max()):.4g}")
+
+
 # With --save-closest-batch PATH, phase 8 saves the rays of the bathroom
 # pass's third closest-hit launch there; with --save-batches DIR, phases 3,
 # 4, 7, 8, 11 and 12 save their timed batches there (for time_closest_batch.py).
@@ -1341,7 +1770,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     t_start = time.perf_counter()
-    card = device_info()
+    global CARD
+    card = CARD = device_info()
     build_kernels()
 
     from mcpt_tpu_torch.io.obj import load_scene
@@ -1366,9 +1796,16 @@ def main() -> int:
     launches.update({k: v for k, v in bathroom_select_path(bath, film8).items() if k.startswith("select_")})
     for k in kernels:
         k["launches"] = launches[k["name"]]
-    del bath, film8
+    del film8
     small_stress_reference()
     small_select_reference()
+    inverse_phase()
+    grad_launches = dict(woop_grad_phase()[0])
+    grad_launches.update({k: v for k, v in traversal_grad_phase(bath)[0].items() if k.startswith("traverse_")})
+    del bath
+    edge_phase()
+    print(f"launches in one gradient step (veach 1024x1024 for woop, bathroom 1280x720 for traverse): "
+          f"{json.dumps(grad_launches)}")
     print(f"total {time.perf_counter() - t_start:.2f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -87,6 +87,8 @@ def _bound(x, R, device):
 
 
 def _pad_chunks(scene: Scene, chunk: int):
+    """Geometry in chunks of `chunk` triangles, detached: the dense wave
+    selects hits and records no graph through displaced vertices."""
     g = scene.geom
     T = g.v0.shape[0]
     chunk = min(chunk, T)
@@ -94,7 +96,7 @@ def _pad_chunks(scene: Scene, chunk: int):
     pad = n * chunk - T
 
     def p(x):
-        return torch.nn.functional.pad(x, (0, 0, 0, pad)).reshape(n, chunk, 3)
+        return torch.nn.functional.pad(x.detach(), (0, 0, 0, pad)).reshape(n, chunk, 3)
 
     valid = (torch.arange(n * chunk, device=g.v0.device) < T).reshape(n, chunk)
     return p(g.v0), p(g.e1), p(g.e2), valid, chunk
@@ -202,7 +204,19 @@ def uses_select_kernel(scene) -> bool:
     return uses_traversal_kernel(scene) and TREELET_SELECT == "smem"
 
 
+def _detach(x):
+    return x.detach() if isinstance(x, torch.Tensor) else x
+
+
 def closest_hit(scene: Scene, org, dirn, t_min=T_MIN, t_max=F32_MAX) -> Hit:
+    """Closest hit of each ray through the route of this scene's size.
+
+    Hit selection is discrete, so every route takes detached rays and
+    bounds (mcpt_tpu wraps them in stop_gradient): under autograd no walk
+    or wave records a graph, and the integrator re-derives t, u, v attached
+    from the hit triangle's row (render/integrator.expand_hit).
+    """
+    org, dirn, t_min, t_max = (_detach(x) for x in (org, dirn, t_min, t_max))
     if uses_select_kernel(scene):
         from mcpt_tpu_torch.ops.select import closest_hit_select
 
@@ -222,6 +236,9 @@ def closest_hit(scene: Scene, org, dirn, t_min=T_MIN, t_max=F32_MAX) -> Hit:
 
 
 def any_hit(scene: Scene, org, dirn, t_min=T_MIN, t_max=F32_MAX) -> torch.Tensor:
+    """bool[R] occlusion of each ray in [t_min, t_max]; detached inputs, as
+    closest_hit."""
+    org, dirn, t_min, t_max = (_detach(x) for x in (org, dirn, t_min, t_max))
     if uses_select_kernel(scene):
         from mcpt_tpu_torch.ops.select import any_hit_select
 

@@ -45,7 +45,7 @@ def build_lobes(kd_tex: torch.Tensor, ks: torch.Tensor, ns: torch.Tensor) -> Lob
     w_s = torch.where(safe, lum_s / den, 0.0)
 
     total = kd_tex + torch.where(has_spec[:, None], spec_reflect, 0.0)
-    maxc = torch.max(total, dim=-1).values
+    maxc = torch.amax(total, dim=-1)  # splits the gradient among ties, as jnp.max
     scale = torch.where(maxc >= 1.0, 1.0 / torch.clamp(maxc, min=1e-30), 1.0)[:, None]
     return Lobes(kd=kd_tex * scale, ks=spec_reflect * scale, ns=ns,
                  has_spec=has_spec, is_mirror=is_mirror, w_d=w_d, w_s=w_s)

@@ -17,6 +17,16 @@ Lanes are bound to pixels and regenerate a new sample when they die, so
 the RNG (keyed by pixel, sample id and bounce) does not depend on lane
 placement and chunking or compaction change no sample. The per-hit table
 lookups are plain row indexing.
+
+The fixed-bounce loop `trace_paths` / `trace_image` (one sample a lane,
+every lane for up to `max_bounces` bounces) is the estimator the gradients
+run through (diff/grad.py). It detaches every sampling decision (uniform
+draws, sampled directions and their pdf, lobe picks, RR outcomes,
+visibility) and keeps every smooth factor attached (hit points and normals
+re-derived from the hit triangle's row, NEE geometry pdfs, MIS weights), so
+autograd of a render is the detached-random gradient of mcpt_tpu's
+`trace_paths(differentiable=True)`. Both integrators take their shading
+math (nee_sample, bsdf_continue, emission_contrib) from the same helpers.
 """
 from __future__ import annotations
 
@@ -30,7 +40,7 @@ from mcpt_tpu_torch.render.camera import generate_rays
 from mcpt_tpu_torch.render.onb import make_onb, to_local, to_world
 from mcpt_tpu_torch.scene import Scene
 from mcpt_tpu_torch.utils.math import cross, dot, normalize, power_heuristic
-from mcpt_tpu_torch.utils.rng import MAX_TAGS, sample_uniforms
+from mcpt_tpu_torch.utils.rng import MAX_TAGS, per_ray_keys, ray_uniforms, sample_uniforms
 
 # Secondary-ray t_min relative to the scene diagonal (the reference's
 # absolute t1 = 1e-4 scaled for f32).
@@ -150,9 +160,16 @@ def expand_hit(tri_table, hit: Hit, org, dirn) -> HitData:
                    valid=hit.valid)
 
 
-def make_expander(scene: Scene):
-    """expand(hit, org, dirn) bound to the tables of this scene's dispatch."""
-    if dispatch_returns_uv(scene):
+def make_expander(scene: Scene, differentiable: bool = False):
+    """expand(hit, org, dirn) bound to the tables of this scene's dispatch.
+
+    `differentiable=True` takes the full expansion on every route: the
+    kernels' (t, u, v) are not differentiable, so the slim expansion would
+    give zero vertex gradients past DENSE_KERNEL_MIN_TRIS; expand_hit
+    re-derives them attached from the hit triangle's row at the frozen
+    selection (mcpt_tpu/render/integrator.py make_expander).
+    """
+    if dispatch_returns_uv(scene) and not differentiable:
         shade_table, mat_table = pack_shade_table(scene), pack_mat_table(scene)
         return lambda hit, org, dirn: expand_hit_uv(shade_table, mat_table, hit, org, dirn)
     tri_table = pack_tri_table(scene)
@@ -187,6 +204,160 @@ def sample_light_point(light_table, n_lights: int, u0, u1, u2):
     point = v0 + bu * e1 + bv * e2
     nrm = normalize((1.0 - bu - bv) * vn[:, 0] + bu * vn[:, 1] + bv * vn[:, 2])
     return point, nrm, rows[:, 18:21], rows[:, 21]
+
+
+def nee_sample(light_table, n_lights: int, h: HitData, lobes, onb, wo_local, beta, u):
+    """Next-event estimation at the vertices `h` (Render.cpp:124-130): one
+    uniform light point, weighted by the power heuristic against the BSDF
+    mixture pdf. Returns (wl, dist, pdf_ok, contrib): the direction and
+    distance of the shadow ray the caller traces, and the unoccluded
+    contribution, to be dropped where pdf_ok is False (the light pdf
+    underflows: a light point on the shading point, analytically ~0 but
+    0 * inf = NaN at f32).
+
+    The wheres and floors keep the backward finite on dead lanes, where
+    d == 0 exactly: sqrt'(0) and a 1e-30 floor (whose square underflows)
+    would give 0 * inf = NaN. The primal is the plain formulas' wherever
+    |d| >= 1e-15.
+    """
+    lpoint, lnrm, lrad, larea = sample_light_point(light_table, n_lights, u[:, 0], u[:, 1], u[:, 2])
+    d = lpoint - h.point
+    dist2 = torch.sum(d * d, dim=-1)
+    safe_d = dist2 > 0
+    dist = torch.where(safe_d, torch.sqrt(torch.where(safe_d, dist2, 1.0)), 0.0)
+    wl = d / torch.clamp(torch.where(safe_d, dist, 1.0), min=1e-15)[:, None]
+    cos_l = dot(-wl, lnrm)
+    nzl = cos_l != 0.0
+    pdf_l = torch.where(nzl, dist2 / torch.where(nzl, cos_l, 1.0) / torch.clamp(larea, min=1e-30), 0.0)
+    pdf_l = torch.where(torch.isfinite(pdf_l), pdf_l, 0.0)  # a denormal cos_l
+    wl_local = to_local(onb, wl)
+    w_mis = power_heuristic(pdf_l / n_lights, bsdf_pdf(lobes, wo_local, wl_local))
+    fx = bsdf_fx(lobes, wo_local, wl_local)
+    cos_s = torch.abs(dot(h.normal, wl))
+    pdf_ok = torch.abs(pdf_l) > 1e-20
+    contrib = (w_mis[:, None] * beta * lrad * fx
+               * (cos_s / torch.where(pdf_ok, pdf_l, 1.0))[:, None] * n_lights)
+    return wl, dist, pdf_ok, contrib
+
+
+def bsdf_continue(lobes, onb, normal, wo_local, beta, live, u):
+    """BSDF sampling (Render.cpp:133-140) on the lanes `live`. Returns
+    (wi_world, pdf, is_mirror, cont, beta'): cont is live where the pdf is
+    usable (> 1e-24, so a denormal pdf cannot overflow beta), and beta' is
+    beta * f * cos / pdf there. The sampled direction and its pdf are
+    decisions, detached; f and the cosine stay attached."""
+    wi_local, f, pdf, is_mirror = bsdf_sample(lobes, wo_local, u[:, 3], u[:, 4], u[:, 5])
+    pdf, wi_local = pdf.detach(), wi_local.detach()
+    bsdf_ok = torch.abs(pdf) > 1e-24
+    cont = live & bsdf_ok
+    wi_world = to_world(onb, wi_local)
+    cos_s = torch.abs(dot(normal, wi_world))
+    beta = torch.where(cont[:, None], beta * f * (cos_s / torch.where(bsdf_ok, pdf, 1.0))[:, None], beta)
+    return wi_world, pdf, is_mirror, cont, beta
+
+
+def emission_contrib(prev_point, h: HitData, prev_pdf, prev_mirror, beta, n_lights: int):
+    """beta x the emission of the vertices `h` reached by BSDF sampling from
+    prev_point (Render.cpp:142-162): full weight after a mirror bounce,
+    else the power heuristic of the (detached) BSDF pdf against the light
+    pdf of the reached point, itself detached. The caller masks the lanes
+    that reached a front-facing emitter. Where prev_point == h.point a unit
+    vector stands in for the zero one, which keeps normalize's backward
+    finite and leaves the primal as it is (the pdf's dist2 is 0 either way)."""
+    dl = prev_point - h.point
+    dist2l = torch.sum(dl * dl, dim=-1)
+    dl_safe = torch.where((dist2l > 0)[:, None], dl, torch.ones_like(dl))
+    cos_nl = dot(normalize(dl_safe, eps=1e-30), h.normal)
+    nz = cos_nl != 0.0
+    light_pdf = torch.where(
+        nz, dist2l / torch.where(nz, cos_nl, 1.0) / float(max(n_lights, 1))
+        / torch.clamp(h.area, min=1e-30), 0.0)
+    w_hit = power_heuristic(prev_pdf, light_pdf.detach())
+    return torch.where(prev_mirror[:, None], beta * h.radiance, beta * h.radiance * w_hit[:, None])
+
+
+def path_tables(scene: Scene):
+    """(expand, light_table) of the fixed-bounce loop: make_expander's full
+    expansion and the light table. Built once a render, so that under
+    autograd the scene's tables are packed, and their gradients sent back
+    through the material and vertex gathers, once and not once a chunk."""
+    light_table = pack_light_table(scene) if scene.num_lights > 0 else None
+    return make_expander(scene, differentiable=True), light_table
+
+
+def trace_paths(scene: Scene, org, dirn, ray_keys, max_bounces: int, tables):
+    """Radiance [R,3] of a batch of camera rays, one sample each.
+
+    Port of mcpt_tpu/render/integrator.py trace_paths(differentiable=True):
+    every lane runs all `max_bounces` bounces (the reference's fixed scan)
+    and every hit is expanded in full from `tables` (path_tables).
+    `ray_keys` is the batch's RNG context (utils.rng.per_ray_keys); bounce
+    b draws its 7 uniforms from stream b+1.
+    """
+    R = org.shape[0]
+    t_min = RAY_EPS_REL * scene.scale
+    n_lights = scene.num_lights
+    expand, light_table = tables
+
+    h = expand(closest_hit(scene, org, dirn, t_min=t_min), org, dirn)
+    # bounce-0 direct emission (Render.cpp:121-122)
+    emis0 = torch.sqrt(torch.sum(h.radiance * h.radiance, dim=-1)) > EMIT_DIRECT_THRESH
+    L = torch.where((h.valid & emis0)[:, None], h.radiance, 0.0)
+    beta = torch.ones((R, 3), device=org.device)
+    active = h.valid
+    dir_c = dirn
+    for b in range(max_bounces):
+        u = ray_uniforms(ray_keys, b + 1, 7)
+        lobes = build_lobes(apply_texture(scene, h), h.ks, h.ns)
+        onb = make_onb(h.normal)
+        wo_local = to_local(onb, -dir_c)
+
+        if n_lights > 0:
+            wl, dist, pdf_ok, contrib = nee_sample(light_table, n_lights, h, lobes, onb, wo_local, beta, u)
+            # the backed-off bound keeps the light from occluding itself
+            occluded = any_hit(scene, h.point, wl, t_min=t_min, t_max=dist * (1.0 - 1e-3))
+            L = L + torch.where((active & pdf_ok & ~occluded)[:, None], contrib, 0.0)
+
+        wi_world, pdf, is_mirror, active, beta = bsdf_continue(lobes, onb, h.normal, wo_local, beta, active, u)
+
+        # look-ahead trace (Render.cpp:142-162)
+        o_next = h.point.detach()
+        hn = expand(closest_hit(scene, o_next, wi_world, t_min=t_min), o_next, wi_world)
+        emis_n = torch.sqrt(torch.sum(hn.radiance * hn.radiance, dim=-1)) > 0.0
+        hit_light = active & hn.valid & emis_n & hn.front
+        L = L + torch.where(hit_light[:, None],
+                            emission_contrib(h.point, hn, pdf, is_mirror, beta, n_lights), 0.0)
+        active = active & hn.valid
+
+        # Russian roulette (Render.cpp:164-170)
+        if b > RR_START_BOUNCE:
+            q = torch.clamp(torch.amax(beta, dim=-1), max=RR_CLAMP).detach()
+            killed = active & (u[:, 6] > q)
+            survived = active & ~killed
+            beta = torch.where(survived[:, None], beta / torch.clamp(q, min=1e-30)[:, None], beta)
+            active = active & ~killed
+        dir_c, h = wi_world, hn
+    return L
+
+
+def trace_image(scene: Scene, cam, sample_key, pixel_idx, max_bounces: int, tables,
+                chunk_rays: int = DEFAULT_CHUNK_RAYS):
+    """One sample for each of `pixel_idx`'s pixels, in chunks of `chunk_rays`
+    rays: radiance [R,3], differentiable in the scene's tables
+    (`tables` = path_tables(scene)).
+
+    `sample_key` is a (hi, lo) threefry key; the streams are keyed by global
+    pixel id, so the chunking changes no sample.
+    """
+    R = pixel_idx.shape[0]
+    chunk = max(1, min(chunk_rays, R))
+    rads = []
+    for c0 in range(0, R, chunk):
+        pidx = pixel_idx[c0:c0 + chunk]
+        ray_keys = per_ray_keys(sample_key, pidx)
+        org, dirn = generate_rays(cam, ray_uniforms(ray_keys, 0, 2), pidx)
+        rads.append(trace_paths(scene, org, dirn, ray_keys, max_bounces, tables))
+    return torch.cat(rads)
 
 
 def chunk_rays_for(scene) -> int:
@@ -282,20 +453,8 @@ def split_shade(scene: Scene, st: dict, hit_t, hit_tri, hit_u, hit_v, occl, key,
     b0 = b == 0
     L_path = L_path + torch.where((valid & b0 & (emis_norm > EMIT_DIRECT_THRESH))[:, None],
                                   h.radiance, 0.0)
-    dl = o - h.point
-    dist2l = torch.sum(dl * dl, dim=-1)
-    cos_nl = dot(normalize(dl, eps=1e-30), h.normal)
-    nz = cos_nl != 0.0
-    light_pdf = torch.where(
-        nz,
-        dist2l / torch.where(nz, cos_nl, 1.0) / max(float(max(n_lights, 1)), 1.0)
-        / torch.clamp(h.area, min=1e-30),
-        0.0,
-    )
-    w_hit = power_heuristic(prev_pdf, light_pdf)
     hit_light = valid & ~b0 & (emis_norm > 0.0) & h.front
-    emit_contrib = torch.where(prev_mirror[:, None], beta * h.radiance,
-                               beta * h.radiance * w_hit[:, None])
+    emit_contrib = emission_contrib(o, h, prev_pdf, prev_mirror, beta, n_lights)
     L_path = L_path + torch.where(hit_light[:, None], emit_contrib, 0.0)
 
     beta = beta * rr_boost[:, None]
@@ -311,30 +470,11 @@ def split_shade(scene: Scene, st: dict, hit_t, hit_tri, hit_u, hit_v, occl, key,
 
     # NEE: this vertex's shadow ray and contribution, resolved next step
     if n_lights > 0:
-        light_table = pack_light_table(scene)
-        lpoint, lnrm, lrad, larea = sample_light_point(light_table, n_lights,
-                                                       u[:, 0], u[:, 1], u[:, 2])
-        dnee = lpoint - h.point
-        dist2 = torch.sum(dnee * dnee, dim=-1)
-        dist = torch.sqrt(dist2)
-        wl = dnee / torch.clamp(dist, min=1e-30)[:, None]
-        cos_l = dot(-wl, lnrm)
-        nzl = cos_l != 0.0
-        pdf_l = torch.where(
-            nzl, dist2 / torch.where(nzl, cos_l, 1.0) / torch.clamp(larea, min=1e-30), 0.0)
-        pdf_l = torch.where(torch.isfinite(pdf_l), pdf_l, 0.0)
-        wl_local = to_local(onb, wl)
-        bp = bsdf_pdf(lobes, wo_local, wl_local)
-        w_mis = power_heuristic(pdf_l / n_lights, bp)
-        fx = bsdf_fx(lobes, wo_local, wl_local)
-        cos_s = torch.abs(dot(h.normal, wl))
-        pdf_ok = torch.abs(pdf_l) > 1e-20
-        contrib = (w_mis[:, None] * beta * lrad * fx
-                   * (cos_s / torch.where(pdf_ok, pdf_l, 1.0))[:, None] * n_lights)
+        wl, dist, pdf_ok, contrib = nee_sample(pack_light_table(scene), n_lights, h, lobes, onb, wo_local,
+                                               beta, u)
         pend_ok = at_vertex & pdf_ok
         pend_contrib = torch.where(pend_ok[:, None], contrib, 0.0)
-        so = h.point
-        sd = wl
+        so, sd = h.point, wl
         smax = torch.where(at_vertex, dist * (1.0 - 1e-3), 0.0)
         nrays = nrays + at_vertex.sum()
     else:
@@ -345,13 +485,7 @@ def split_shade(scene: Scene, st: dict, hit_t, hit_tri, hit_u, hit_v, occl, key,
         smax = torch.zeros((R,), device=dev)
 
     # BSDF sampling and Russian roulette
-    wi_local, f, pdf, is_mirror = bsdf_sample(lobes, wo_local, u[:, 3], u[:, 4], u[:, 5])
-    bsdf_ok = torch.abs(pdf) > 1e-24
-    wi_world = to_world(onb, wi_local)
-    cos_s2 = torch.abs(dot(h.normal, wi_world))
-    beta_new = beta * f * (cos_s2 / torch.where(bsdf_ok, pdf, 1.0))[:, None]
-    cont = at_vertex & bsdf_ok
-    beta = torch.where(cont[:, None], beta_new, beta)
+    wi_world, pdf, is_mirror, cont, beta = bsdf_continue(lobes, onb, h.normal, wo_local, beta, at_vertex, u)
 
     q = torch.clamp(torch.amax(beta, dim=-1), max=RR_CLAMP)
     do_rr = (b > RR_START_BOUNCE) & cont

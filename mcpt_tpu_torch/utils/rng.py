@@ -9,8 +9,15 @@ Torch has no uint32 add or shift on the CPU, so 32-bit words are held in
 int64 tensors and masked back to 32 bits after every add; the draws equal
 `jax.random`'s threefry bit for bit. Stream tags: 0 = camera jitter,
 b+1 = bounce b.
+
+The fixed-bounce loop (render/integrator.trace_paths) keys its streams by
+a per-sample key instead, folded and split on the host with `fold_in` and
+`split`, which equal `jax.random.fold_in` / `jax.random.split` on threefry
+keys (with `jax_threefry_partitionable`, JAX's default since 0.5).
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
@@ -26,12 +33,23 @@ def prng_key(seed: int) -> tuple[int, int]:
     return (seed >> 32) & _MASK, seed & _MASK
 
 
-def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+def fold_in(key: tuple[int, int], data: int) -> tuple[int, int]:
+    """`jax.random.fold_in(key, data)`: threefry of the counter pair (0, data)."""
+    return threefry2x32(key, 0, data & _MASK)
+
+
+def split(key: tuple[int, int], n: int = 2) -> list[tuple[int, int]]:
+    """`jax.random.split(key, n)`: key i is threefry of the counter pair (0, i)."""
+    return [fold_in(key, i) for i in range(n)]
+
+
+def _rotl(x, r: int):
     return ((x << r) | (x >> (32 - r))) & _MASK
 
 
-def threefry2x32(key: tuple[int, int], x0: torch.Tensor, x1: torch.Tensor):
-    """Threefry-2x32 (20 rounds) on int64 tensors holding uint32 words."""
+def threefry2x32(key: tuple[int, int], x0, x1):
+    """Threefry-2x32 (20 rounds) on int64 tensors holding uint32 words, or
+    on Python ints."""
     k0, k1 = key
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
     x0 = (x0 + ks[0]) & _MASK
@@ -67,3 +85,24 @@ def sample_uniforms(key, pixel_id: torch.Tensor, sid, tag, n: int) -> torch.Tens
     w0, w1 = threefry2x32(key, hi, lo)
     words = torch.cat([w0, w1], dim=1)[:, :n]
     return (words >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+@dataclass(frozen=True)
+class RayRng:
+    """Per-batch context of the fixed-bounce loop: a per-sample key and the
+    rays' global pixel ids (int64 holding uint32)."""
+
+    key: tuple[int, int]
+    ray_id: torch.Tensor
+
+
+def per_ray_keys(key: tuple[int, int], ray_id: torch.Tensor) -> RayRng:
+    """mcpt_tpu.utils.rng.per_ray_keys."""
+    return RayRng(key=key, ray_id=ray_id.to(torch.int64) & _MASK)
+
+
+def ray_uniforms(ctx: RayRng, tag, n: int) -> torch.Tensor:
+    """[R, n] uniforms of stream `tag` of each ray: threefry of the counter
+    pairs (ray_id, tag*MAX_SLOTS + slot), as mcpt_tpu.utils.rng.ray_uniforms.
+    That is sample_uniforms' stream at sample id 0."""
+    return sample_uniforms(ctx.key, ctx.ray_id, 0, tag, n)

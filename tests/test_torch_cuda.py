@@ -463,3 +463,83 @@ def test_schedule_kernels_on_deep_treelets_equal_plain_versions_bitwise(D):
         p = getattr(S, f"{kind}_hit_schedule_plain")(tl, ts, rays, sched[0])
         for a, b in zip(k, p) if kind == "closest" else ((k, p),):
             assert torch.equal(a, b), kind
+
+
+def _grads_kernel_and_plain(scene, mod, swaps, w, h, bounces):
+    """loss_and_grad through the kernels (their launches counted), then
+    with the plain versions swapped in (chip_smoke.py's phases 16-17 at a
+    small size), deterministic algorithms on: the backward of an index
+    gather sums with atomics on the card otherwise."""
+    import dataclasses
+
+    from mcpt_tpu_torch.diff.grad import extract_params, loss_and_grad
+    from mcpt_tpu_torch.ops.plain_route import deterministic, plain_route
+    from mcpt_tpu_torch.utils.rng import prng_key
+
+    sc = dataclasses.replace(scene, camera=dataclasses.replace(scene.camera, width=w, height=h))
+    p = extract_params(sc)
+    black = torch.zeros((h, w, 3), device="cuda")
+    with deterministic():
+        before = dict(mod.LAUNCHES)
+        k = loss_and_grad(p, sc, black, prng_key(2), 1, bounces)
+        launched = {c: mod.LAUNCHES[c] - before[c] for c in before}
+        with plain_route(mod, swaps):
+            pl = loss_and_grad(p, sc, black, prng_key(2), 1, bounces)
+    return k, pl, launched
+
+
+def _assert_same(k, pl):
+    (lk, gk), (lp, gp) = k, pl
+    assert torch.equal(lk, lp)
+    for name, v in gk.tensors().items():
+        assert torch.isfinite(v).all(), name
+        assert torch.equal(v, getattr(gp, name)), name
+
+
+def test_gradients_through_woop_kernels_equal_plain_bitwise(veach_cuda):
+    """A gradient step (kd, ks, radiance, dverts) on veach at 32x24, 1 spp,
+    3 bounces launches both Woop kernels, and equals the step through their
+    plain versions bit for bit."""
+    from mcpt_tpu_torch.ops import woop
+    from mcpt_tpu_torch.ops.plain_route import WOOP_PLAIN
+
+    k, pl, launched = _grads_kernel_and_plain(veach_cuda, woop, WOOP_PLAIN, 32, 24, 3)
+    assert min(launched.values()) > 0, launched
+    _assert_same(k, pl)
+
+
+def test_gradients_through_traversal_kernels_equal_plain_bitwise(stress_cuda):
+    """The same on the 5,986-triangle stress scene at 32x18, 1 spp, 2
+    bounces, through the traversal kernels (vertex field over every vertex)."""
+    from mcpt_tpu_torch.ops import traverse
+    from mcpt_tpu_torch.ops.plain_route import TRAVERSE_PLAIN
+
+    k, pl, launched = _grads_kernel_and_plain(stress_cuda[0], traverse, TRAVERSE_PLAIN, 32, 18, 2)
+    assert min(launched.values()) > 0, launched
+    assert k[1].dverts is not None
+    _assert_same(k, pl)
+
+
+def test_inverse_step_on_card():
+    """One Adam step on cornell at 16x16 (the dense route) on the card:
+    finite loss and parameters, no gradient entry scrubbed, kd moved."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from mcpt_tpu_torch.diff.grad import extract_params, render_image
+    from mcpt_tpu_torch.diff.inverse import make_inverse_step
+    from mcpt_tpu_torch.io.obj import load_scene
+    from mcpt_tpu_torch.utils.rng import prng_key
+
+    s = load_scene(os.path.join(ROOT, "scenes", "cornell-box.obj"), device="cuda")
+    s = dataclasses.replace(s, camera=dataclasses.replace(s.camera, width=16, height=16))
+    p = extract_params(s)
+    with torch.no_grad():
+        target = render_image(p, s, prng_key(7), 2, 3)
+    init, step = make_inverse_step(s, target, spp=1, max_bounces=3, radiance_lr=0.2)
+    start = dataclasses.replace(p, kd=p.kd * 0.5)
+    st, loss = step(init(start), prng_key(1))
+    assert torch.isfinite(loss) and int(st.scrubbed) == 0
+    assert all(torch.isfinite(v).all() for v in st.params.tensors().values())
+    assert not torch.equal(st.params.kd, start.kd)

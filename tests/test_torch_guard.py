@@ -95,6 +95,38 @@ def test_select_route_renders_with_jax_blocked():
     assert out.strip() == "OK []"
 
 
+def test_gradient_step_with_jax_blocked():
+    """The differentiable path with jax, jaxlib and mcpt_tpu unimportable:
+    a loss and gradient on cornell at 8x8 (vertex field included), one
+    Adam step, and the edge term's silhouette tables; diff/ is under the
+    scan above."""
+    rel = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for name in ("grad", "inverse", "edge"):
+        assert f"mcpt_tpu_torch/diff/{name}.py" in rel
+    out = _run(
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'mcpt_tpu'): sys.modules[m] = None\n"
+        "import dataclasses, torch\n"
+        "from mcpt_tpu_torch.io.obj import load_scene\n"
+        "from mcpt_tpu_torch.diff.grad import extract_params, loss_and_grad\n"
+        "from mcpt_tpu_torch.diff.inverse import make_inverse_step\n"
+        "from mcpt_tpu_torch.diff.edge import build_silhouette_tables\n"
+        "from mcpt_tpu_torch.utils.rng import prng_key\n"
+        "s = load_scene('scenes/cornell-box.obj', device='cpu')\n"
+        "s = dataclasses.replace(s, camera=dataclasses.replace(s.camera, width=8, height=8))\n"
+        "p = extract_params(s)\n"
+        "loss, g = loss_and_grad(p, s, torch.zeros(8, 8, 3), prng_key(0), 1, 2)\n"
+        "assert all(torch.isfinite(x).all() for x in g.tensors().values()) and g.kd.abs().max() > 0\n"
+        "init, step = make_inverse_step(s, torch.zeros(8, 8, 3), spp=1, max_bounces=2, radiance_lr=0.2)\n"
+        "st, l2 = step(init(p), prng_key(1))\n"
+        "assert st.step == 1 and not torch.equal(st.params.kd, p.kd)\n"
+        "assert len(build_silhouette_tables(s)[1]) > 0\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'mcpt_tpu') and sys.modules[m] is not None]\n"
+        "print('OK', bad)\n"
+    )
+    assert out.strip() == "OK []"
+
+
 def test_import_builds_nothing():
     """Importing every module of the package runs no compiler (nvcc or g++)
     and loads no library."""
