@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the mcpt_tpu_torch port once on one CUDA card and check it.
 
-    python3 chip_smoke.py [--save-closest-batch PATH] [--save-batches DIR]
+    python3 chip_smoke.py [--save-closest-batch PATH] [--save-batches DIR] [--only 19,20,...]
 
 Phases, each printing its wall seconds:
   1. the device, and the card's name and power limit from nvidia-smi;
@@ -32,15 +32,17 @@ Phases, each printing its wall seconds:
  10. bathroom-stress's treelet layout built again from its BVH, timed;
  11. the schedule pre-pass kernel against its plain version, and the
      schedule walk kernels (per-ray walks of each scheduled treelet's staged
-     sub-BVH) against their plain walks, the reference (packet) walk and,
-     with the exact fallback, traverse.cu, on phase 7's camera and shadow
-     rays and on a scrambled batch, with both walks' counts and times of the
-     pre-pass, the kernel, the fallback and the whole entry point;
+     sub-BVH) against their plain walks and the reference (packet) walk on
+     every TILE_STRIDE-th whole tile and, with the exact fallback, against
+     traverse.cu on every tile, on phase 7's camera and shadow rays and on a
+     scrambled batch, with both walks' counts and times of the pre-pass,
+     the kernel, the fallback and the whole entry point;
  12. the select kernels against their plain walks (per-ray walks of each
-     staged treelet) on phase 7's batches, against the reference walk
-     (every triangle of every treelet a tile visits) and traverse.cu, with
-     both walks' counts, and against traverse.cu on phase 8's third
-     batches, with times;
+     staged treelet) and the reference walk (every triangle of every
+     treelet a tile visits) on every TILE_STRIDE-th tile of phase 7's
+     batches, and against traverse.cu on every tile, with both walks'
+     counts, and against traverse.cu on phase 8's third batches, with
+     times;
  13. the bathroom main path of phase 8 through the select kernels
      (MCPT_TREELET_SELECT=smem dispatch), its film against phase 8's;
  14. phase 9's render through the select kernels, card against CPU;
@@ -58,9 +60,27 @@ Phases, each printing its wall seconds:
      kernels' gradients equal the plain versions' bit for bit, and on the
      grid scene agree with the CPU;
  18. the NEE edge term on an occluder scene past 256 triangles (its
-     occlusion tests run woop_any), card against CPU.
-Phases 15-18 also print their peak device memory and the card, and the
-line after phase 18 the kernel launches of one gradient step.
+     occlusion tests run woop_any), card against CPU;
+ 19. `python -m mcpt_tpu_torch`: info, and cornell-box at 1024x1024, 64 spp,
+     24 bounces in a subprocess, its tonemapped mean within 0.02 of the
+     golden one (tests/test_golden_stats.py); a 64x64 render on the card
+     and on the CPU;
+ 20. a veach 1024x1024, 24-bounce render killed with SIGKILL after its first
+     checkpoint and resumed in a subprocess, bitwise equal to an
+     uninterrupted run (Woop launches counted);
+ 21. `inverse` at the inverse-500 set-up with checkpoints: a resume from
+     step 4 bitwise (deterministic algorithms), the emitter's kd reported,
+     the PNG target's saturation warning;
+ 22. MCPT_F64_GEOM=1 on the card: grazing rays against a numpy f64 oracle,
+     cornell 64x64 card against CPU;
+ 23. `render --mesh` 2x1 (gloo, ranks sharing the card) and 1x1 (NCCL)
+     bitwise, 1x2 within 2e-6, against one process on veach 1024x1024; a
+     2x1 ShardedRenderer on the 5,986-triangle stress scene at 1280x720
+     (traversal kernels) bitwise; measure_scaling; dryrun_grad_step on 2
+     ranks against one process.
+Phases 15-23 also print their peak device memory and the card, and the
+line after phase 23 the kernel launches of one gradient step. --only
+runs phases 1-2 and the listed ones of 19-23, and prints no result.
 The line before the last is a JSON object with one entry per kernel (the
 eight that replace TPU kernels, and the schedule pre-pass, which replaces
 none); the last line is {"ok": true, "device": {...}}. Any failure raises
@@ -126,10 +146,13 @@ BATH_PASSES = 2
 TRAV_NODE_OPS = {"closest": 29, "any": 28}
 TRAV_TRI_OPS = {"closest": 55, "any": 54}
 SCHED_V = 512  # schedule capacity a tile (mcpt_tpu DEFAULT_V)
-# Phase 11 holds the schedule walk kernels against the plain walks on every
-# tile of the camera and shadow batches and on every 8th tile of the
-# scrambled one (900 of 7,200): on an H100 the plain walk took 27 s for all.
-SCRAMBLED_STRIDE = 8
+# Phases 11-12 run, time and count each treelet kernel on every tile of
+# its 921,600-ray batches, and hold it against its plain walk and the
+# reference (packet) walk on every TILE_STRIDE-th whole 128-ray tile (450 of
+# 7,200), the kernel's output restricted to the same tiles: the plain walks
+# are tile-local (tests/test_torch_walk_tiles.py), and on all tiles they
+# took 115-166 s of the script on an H100 (on every 8th, 40.8 s).
+TILE_STRIDE = 16
 # f32 operations of csrc/treelet.cu: per (ray, triangle) test, Moller-
 # Trumbore (27 mul, 17 add/sub, abs, compare, one division) and the accept
 # predicate (closest: 7 compares and 2 sub with the tie rule; any: 6
@@ -1033,6 +1056,16 @@ def _packet_bound(kind, counts, rays, scene, extra_bytes):
     return 1e3 * max(ops / H100_FP32_OPS, nbytes / H100_BYTES)
 
 
+def _tile_subset(n_tiles, device):
+    """(tiles, their ray ids): every TILE_STRIDE-th whole 128-ray tile."""
+    import torch
+
+    from mcpt_tpu_torch.ops.schedule import RAY_TILE
+
+    tiles = torch.arange(0, n_tiles, TILE_STRIDE, device=device)
+    return tiles, (tiles[:, None] * RAY_TILE + torch.arange(RAY_TILE, device=device)).reshape(-1)
+
+
 def _check_route(name, label, n_trav, other="traverse.cu"):
     if n_trav > ROUTE_DIFF_MAX:
         raise AssertionError(f"{name} answers differently from {other} on {n_trav} rays of the {label} "
@@ -1057,8 +1090,8 @@ def check_schedule(scene, batches, walks):
     and a scrambled batch that fills the fallback): the pre-pass kernel
     against its plain version (keys, incomplete tiles and live counts
     bitwise); the walk kernel against its plain walk (0 rays may differ,
-    t/u/v bitwise; every tile, every SCRAMBLED_STRIDE-th of the scrambled
-    batch) and the reference (packet) walk on the same tiles and, as
+    t/u/v bitwise) and the reference (packet) walk on every TILE_STRIDE-th
+    tile (the kernel's output restricted to them) and, as
     the whole function (kernel, then traverse.cu on the incomplete tiles'
     rays), against traverse.cu (at most ROUTE_DIFF_MAX rays may differ
     each, examples printed); both walks' counts, and on camera rays the
@@ -1097,14 +1130,11 @@ def check_schedule(scene, batches, walks):
             _save(sched, f"schedule_{kind}_{label}_rows.pt")
         nl = n_live.float()
         n_inc = int(inc.sum())
-        # the walks: the kernel on every tile; the plain walks on every tile
-        # of the camera and shadow batches and on every SCRAMBLED_STRIDE-th
-        # tile of the scrambled one (the plain walk's loop takes the longest
-        # there)
+        # the walks: the kernel on every tile; the plain walks on every
+        # TILE_STRIDE-th tile, the kernel's output restricted to them
         kern = getattr(S, f"{kind}_hit_schedule_kernel")
         k = kern(tl, ts, srt, sched)
-        tiles = torch.arange(0, sched.shape[0], SCRAMBLED_STRIDE if label == "scrambled" else 1, device=srt.device)
-        ray_ids = (tiles[:, None] * S.RAY_TILE + torch.arange(S.RAY_TILE, device=srt.device)).reshape(-1)
+        tiles, ray_ids = _tile_subset(sched.shape[0], srt.device)
         sub, sub_sched = srt[ray_ids], sched[tiles].contiguous()
         k_sub = tuple(x[ray_ids] for x in k) if kind == "closest" else k[ray_ids]
         p, counts, plain_ms = _walk_plain(getattr(S, f"{kind}_hit_schedule_plain"), tl, ts, sub, sub_sched)
@@ -1129,10 +1159,13 @@ def check_schedule(scene, batches, walks):
         args = (rays[:, 0:3], rays[:, 4:7], rays[:, 3], rays[:, 7])
         whole_ms = cuda_time_ms(lambda: getattr(S, f"{kind}_hit_schedule")(scene, *args, v=SCHED_V))
         trav_whole_ms = cuda_time_ms(lambda: getattr(tv, f"{kind}_hit_traverse")(ts, *args))
-        # bounds
-        trav_counts = (_walk_plain(tv.closest_hit_traverse_plain, ts, srt)[1] if label == "scrambled"
-                       else walks[kind])
-        bound_ms, by = _traversal_bound(kind, trav_counts, srt, ts)
+        # bounds; the walk and packet-test bounds count the tiles above, so
+        # the kernel is timed on them too
+        sub_ms = cuda_time_ms(lambda: kern(tl, ts, sub, sub_sched))
+        if label == "scrambled":  # the BVH walk's tests on the tiles above (on all: seconds)
+            bound_ms, by = _traversal_bound(kind, _walk_plain(tv.closest_hit_traverse_plain, ts, sub)[1], sub, ts)
+        else:
+            bound_ms, by = _traversal_bound(kind, walks[kind], srt, ts)
         walk_ms = _walk_bound(kind, counts, sub, scene, 4 * sub_sched.numel())
         packet_ms = _packet_bound(kind, ref_counts, sub, scene, 4 * sub_sched.numel())
         pre_bound_ms, pre_by = _prepass_bound(pre_counts, srt, scene, sched)
@@ -1158,9 +1191,10 @@ def check_schedule(scene, batches, walks):
         print(f"schedule_{kind} ({label}): pre-pass {prepass_ms:.4f} ms, kernel {ms:.4f} ms, fallback "
               f"{fallback_ms:.4f} ms; the whole {kind}_hit_schedule {whole_ms:.4f} ms against {kind}_hit_traverse "
               f"{trav_whole_ms:.4f} ms (traverse.cu alone {trav_ms:.4f} ms); plain walk {plain_ms:.1f} ms, packet "
-              f"walk {ref_ms:.1f} ms (one run each); bound {bound_ms:.4f} ms ({by}; the BVH walk's tests), walk "
-              f"bound {walk_ms:.4f} ms (this kernel's counts), packet-test bound {packet_ms:.4f} ms (the packet "
-              f"walk's)")
+              f"walk {ref_ms:.1f} ms (one run each); bound {bound_ms:.4f} ms ({by}; the BVH walk's tests"
+              f"{' on the tiles above' if label == 'scrambled' else ''}); on the tiles above the kernel "
+              f"{sub_ms:.4f} ms, walk bound {walk_ms:.4f} ms (this kernel's counts), packet-test bound "
+              f"{packet_ms:.4f} ms (the packet walk's)")
         if not (pre_bitwise and pre_mirror):
             raise AssertionError(f"schedule_prepass kernel differs from its plain version on {n_rows} rows (culled "
                                  f"mirror equal {pre_mirror}) of the {label} batch")
@@ -1221,10 +1255,11 @@ def _walk_bound(kind, counts, rays, scene, extra_bytes=0):
 @phase("12 select kernels vs plain")
 def check_select(scene, batches, walks, thirds):
     """The select kernels on the camera and shadow batches of phase 7:
-    against their plain walks (0 rays may differ, t/u/v bitwise), the
+    against their plain walks (0 rays may differ, t/u/v bitwise) and the
     reference walk (every tested ray of a tile against every triangle of
-    every treelet it visits) and traverse.cu (at most ROUTE_DIFF_MAX rays
-    may differ each, examples printed); both walks' counts, and on camera
+    every treelet it visits) on every TILE_STRIDE-th tile, and against
+    traverse.cu on every tile (at most ROUTE_DIFF_MAX rays may differ each,
+    examples printed); both walks' counts, and on camera
     rays the walk must make at most a fifth of the reference walk's
     triangle tests. On phase 8's third closest and third any-hit batches
     against traverse.cu. Times each kernel on each batch; bound_ms as in
@@ -1255,26 +1290,35 @@ def check_select(scene, batches, walks, thirds):
         _check_route(f"select_{kind}", label, n_trav)
         if not first:
             continue
-        p, counts, plain_ms = _walk_plain(getattr(SL, f"{kind}_hit_select_plain"), tl, ts, srt)
-        ref, ref_counts, ref_ms = _walk_plain(getattr(SL, f"{kind}_hit_select_packet_plain"), tl, ts, srt)
-        n_diff, bitwise, err = _agreement(kind, k, p)
-        n_ref = _agreement(kind, k, ref)[0]
-        tested = int(((srt[:, 3] < srt[:, 7]) & (srt[:, 0:3].abs() < 1e29).all(dim=1)).sum())
+        # the plain walks on every TILE_STRIDE-th tile, the kernel's output
+        # restricted to them
+        tiles, ray_ids = _tile_subset(srt.shape[0] // SL.RAY_TILE, srt.device)
+        sub = srt[ray_ids]
+        k_sub = tuple(x[ray_ids] for x in k) if kind == "closest" else k[ray_ids]
+        p, counts, plain_ms = _walk_plain(getattr(SL, f"{kind}_hit_select_plain"), tl, ts, sub)
+        ref, ref_counts, ref_ms = _walk_plain(getattr(SL, f"{kind}_hit_select_packet_plain"), tl, ts, sub)
+        n_diff, bitwise, err = _agreement(kind, k_sub, p)
+        n_ref = _agreement(kind, k_sub, ref)[0]
+        tested = int(((sub[:, 3] < sub[:, 7]) & (sub[:, 0:3].abs() < 1e29).all(dim=1)).sum())
         per = max(tested, 1)
         bound_ms, by = _traversal_bound(kind, walks[kind], srt, ts)
-        print(f"select_{kind} ({label}): {tested} tested rays; {n_diff} rays differ from the plain walk (bitwise "
-              f"{bitwise}, max abs err {err:.3g}); {n_ref} differ from the reference walk"
-              f"{' e.g. ' + str(_examples(kind, k, ref)) if n_ref else ''}")
+        print(f"select_{kind} ({label}): the plain walks on {tiles.shape[0]} of {srt.shape[0] // SL.RAY_TILE} "
+              f"tiles, {tested} tested rays; {n_diff} rays differ from the plain walk (bitwise {bitwise}, max abs "
+              f"err {err:.3g}); {n_ref} differ from the reference walk"
+              f"{' e.g. ' + str(_examples(kind, k_sub, ref)) if n_ref else ''}")
         print(f"select_{kind} ({label}): walk {counts['treelet_visits']} treelet visits, {counts['pair_visits']} "
               f"child-pair visits ({counts['pair_visits'] / per:.2f} a tested ray), {counts['tri_tests']} triangle "
               f"tests ({counts['tri_tests'] / per:.2f}), {counts['box_keys']} entry keys "
               f"({counts['box_keys'] / per:.2f}); reference walk {ref_counts['treelet_visits']} treelet visits, "
               f"{ref_counts['tri_tests']} triangle tests ({ref_counts['tri_tests'] / per:.2f}), "
               f"{ref_counts['box_keys']} entry keys ({ref_counts['box_keys'] / per:.2f})")
-        print(f"select_{kind} ({label}): plain walk {plain_ms:.1f} ms, reference walk {ref_ms:.1f} ms (one run each); "
-              f"bound {bound_ms:.4f} ms ({by}; the BVH walk's tests), walk bound "
-              f"{_walk_bound(kind, counts, srt, scene):.4f} ms (this kernel's counts), packet-test bound "
-              f"{_packet_bound(kind, ref_counts, srt, scene, 4 * (tl.sb_box.numel() + tl.blk_box.numel())):.4f}"
+        sub_ms = cuda_time_ms(lambda: kern(tl, ts, sub))
+        print(f"select_{kind} ({label}): plain walk {plain_ms:.1f} ms, reference walk {ref_ms:.1f} ms (one run each, "
+              f"on the tiles above); bound {bound_ms:.4f} ms ({by}; the BVH walk's tests on every tile); on the tiles "
+              f"above the kernel {sub_ms:.4f} ms, walk bound "
+              f"{_walk_bound(kind, counts, sub, scene):.4f} ms (this kernel's counts), "
+              f"packet-test bound "
+              f"{_packet_bound(kind, ref_counts, sub, scene, 4 * (tl.sb_box.numel() + tl.blk_box.numel())):.4f}"
               f" ms (the reference walk's)")
         if n_diff or not bitwise:
             raise AssertionError(f"select_{kind} kernel differs from its plain walk on {n_diff} rays "
@@ -1742,6 +1786,405 @@ def edge_phase():
     print(f"make_nee_edge_term on the card: max |dverts grad| {float(g.dverts.abs().max()):.4g}")
 
 
+# ---------------------------------------------------------------------------
+# The command line, checkpoints, f64 geometry and the mesh (phases 19-23)
+# ---------------------------------------------------------------------------
+
+# cornell's golden post-tonemap mean RGB (tests/test_golden_stats.py:22)
+GOLDEN_CORNELL_MEAN = (0.448, 0.380, 0.269)
+GOLDEN_TOL = 0.02
+SPP_AXIS_TOL = 2e-6  # film on the spp axis (tests/test_parallel.py's bound)
+DRYRUN_W, DRYRUN_H = 256, 128
+# dry-run step on 2 ranks against one process: the ranks' partial sums are
+# added in another order, and on the card the gather backward sums with
+# atomics, so the loss agrees within rtol DRYRUN_LOSS_RTOL and each
+# gradient field within rtol DRYRUN_GRAD_TOL plus DRYRUN_GRAD_TOL times the
+# field's largest entry (an entry that cancels to ~0 keeps only its
+# absolute error). The ranks' parameters after the Adam step must equal
+# each other bit for bit (one all-reduced gradient); against one process
+# they are not compared, as Adam's first step, lr * g / (|g| + eps), turns
+# a rounding difference in a gradient near eps into one of order lr.
+DRYRUN_LOSS_RTOL, DRYRUN_GRAD_TOL = 1e-6, 1e-5
+
+
+def _cli(*args, check=True, **kw):
+    """`python -m mcpt_tpu_torch ...` from the checkout's root, in a
+    subprocess; its output is printed, its stats line returned."""
+    r = subprocess.run([sys.executable, "-m", "mcpt_tpu_torch", *args], cwd=ROOT, capture_output=True, text=True,
+                       timeout=600, **kw)
+    tail = "\n".join(r.stdout.strip().splitlines()[-3:])
+    print(f"$ python -m mcpt_tpu_torch {' '.join(args)}\n{tail}")
+    if check and r.returncode != 0:
+        raise AssertionError(f"mcpt_tpu_torch {args[0]} exited {r.returncode}: {r.stderr[-3000:]}")
+    return r
+
+
+def _cli_in_process(*args):
+    """cli.main(args) in this process: its stdout (printed from the stats
+    line on) and stderr."""
+    import contextlib
+    import io
+
+    from mcpt_tpu_torch.cli import main as cli_main
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli_main(list(args))
+    if rc != 0:
+        raise AssertionError(f"cli.main({args}) returned {rc}")
+    return out.getvalue(), err.getvalue()
+
+
+def _last_json(text):
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def _png_mean(path):
+    import numpy as np
+    from PIL import Image
+
+    return np.asarray(Image.open(path).convert("RGB"), np.float64).reshape(-1, 3).mean(axis=0) / 255.0
+
+
+def _radiance(path):
+    import numpy as np
+
+    with np.load(path) as z:
+        return z["radiance"]
+
+
+@grad_phase("19 the command line at the headline configuration")
+def cli_headline_phase(tmp):
+    """`info` in process, and `render` through `python -m mcpt_tpu_torch` in
+    a subprocess: cornell-box at its 1024x1024, 64 spp, 24 bounces (16 spp
+    a pass), its PNG's tonemapped mean within GOLDEN_TOL of cornell's
+    golden mean and no NaN scrubbed; then 64x64, 2 spp, 4 bounces with
+    --device cuda and --device cpu in process, their --save-radiance files
+    within phase 5's contract."""
+    info = json.loads(_cli_in_process("info", CORNELL)[0])
+    if info["triangles"] != 32 or info["camera"]["width"] != 1024:
+        raise AssertionError(f"info: {info}")
+    png = os.path.join(tmp, "cornell.png")
+    r = _cli("render", CORNELL, "--spp", "64", "--bounces", "24", "--out", png)
+    stats = _last_json(r.stdout)
+    mean = _png_mean(png)
+    print(f"cornell 1024x1024, 64 spp, 24 bounces: {json.dumps(stats)}; tonemapped mean RGB "
+          f"{[round(float(m), 4) for m in mean]} against the golden {GOLDEN_CORNELL_MEAN}")
+    if stats["spp"] != 64 or stats["nan_scrubbed"] != 0:
+        raise AssertionError(f"cornell headline render: {stats}")
+    if max(abs(float(a) - b) for a, b in zip(mean, GOLDEN_CORNELL_MEAN)) >= GOLDEN_TOL:
+        raise AssertionError(f"cornell mean {mean} is not within {GOLDEN_TOL} of {GOLDEN_CORNELL_MEAN}")
+    rads = []
+    for dev in ("cuda", "cpu"):
+        path = os.path.join(tmp, f"small_{dev}.npz")
+        _cli_in_process("render", CORNELL, "--width", "64", "--height", "64", "--spp", "2", "--bounces", "4",
+                        "--device", dev, "--out", os.path.join(tmp, f"small_{dev}.png"), "--save-radiance", path)
+        rads.append(_radiance(path))
+    _render_contract("cornell 64x64x2spp through the CLI", *rads)
+
+
+@grad_phase("20 kill and resume at full width")
+def kill_resume_phase(tmp):
+    """veach-mis at 1024x1024, 24 bounces, 1 spp a pass, a checkpoint after
+    every pass, in a subprocess killed with SIGKILL after its first
+    checkpoint; a subprocess resumes it to sample_idx + 2 spp. Its PNG and
+    --save-radiance file equal an uninterrupted in-process run's bit for
+    bit, which launches the Woop kernels."""
+    import signal
+
+    import numpy as np
+    from PIL import Image
+
+    ck = os.path.join(tmp, "veach.ckpt.npz")
+    base = ["render", VEACH, "--width", str(WIDTH), "--height", str(HEIGHT), "--spp-per-pass", "1",
+            "--bounces", str(MAX_BOUNCES)]
+    t0 = time.perf_counter()
+    victim = subprocess.Popen([sys.executable, "-m", "mcpt_tpu_torch", *base, "--spp", "1000", "--checkpoint", ck,
+                               "--checkpoint-every", "1", "--out", os.path.join(tmp, "never.png")],
+                              cwd=ROOT, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+    try:
+        while not os.path.exists(ck):
+            if victim.poll() is not None:
+                raise AssertionError(f"the render exited before its first checkpoint: "
+                                     f"{victim.stderr.read().decode()[-3000:]}")
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError("no checkpoint within 300 s")
+            time.sleep(0.05)
+        time.sleep(0.2)  # the kill lands mid-pass
+    finally:
+        victim.send_signal(signal.SIGKILL)
+        victim.wait()
+    with np.load(ck) as z:
+        at = int(z["sample_idx"])
+    print(f"killed the render {time.perf_counter() - t0:.2f} s after its start, checkpoint at {at} spp")
+    spp = str(at + 2)
+    outs = {}
+    paths = {n: (os.path.join(tmp, f"{n}.png"), os.path.join(tmp, f"{n}.npz")) for n in ("resumed", "full")}
+    r = _cli(*base, "--spp", spp, "--resume", ck, "--out", paths["resumed"][0], "--save-radiance",
+             paths["resumed"][1])
+    if f"resumed at {at} spp" not in r.stdout:
+        raise AssertionError("the resume did not start from the checkpoint")
+    _reset_counts()
+    out, _ = _cli_in_process(*base, "--spp", spp, "--out", paths["full"][0], "--save-radiance", paths["full"][1])
+    launches = _read_counts()[0]
+    print(f"uninterrupted in process: {out.strip().splitlines()[-1]}; launches {launches}")
+    if min(launches["woop_closest"], launches["woop_any"]) == 0:
+        raise AssertionError(f"the uninterrupted run did not launch the Woop kernels: {launches}")
+    for n, (png, rad) in paths.items():
+        outs[n] = (np.asarray(Image.open(png)), _radiance(rad))
+    same = [np.array_equal(a, b) for a, b in zip(outs["resumed"], outs["full"])]
+    print(f"resumed against uninterrupted at {spp} spp: PNG bitwise {same[0]}, radiance bitwise {same[1]}")
+    if not all(same):
+        raise AssertionError("the resumed render differs from the uninterrupted one")
+
+
+@grad_phase("21 inverse through the command line")
+def inverse_cli_phase(tmp):
+    """bench.py's inverse-500 set-up (cornell 256x256, 4 spp, 6 bounces)
+    through `inverse` in process, deterministic algorithms on, against an
+    .npz target from `render --save-radiance` (4 spp): 5 steps with a
+    checkpoint every 2; a resume from step 4's checkpoint ends with the
+    uninterrupted run's parameters bit for bit; the emitter's kd is
+    reported unconstrained; 2 steps against the PNG target print the
+    saturation warning."""
+    import numpy as np
+
+    from mcpt_tpu_torch.ops.plain_route import deterministic
+
+    size = ["--width", str(INV_RES), "--height", str(INV_RES)]
+    target, tpng = os.path.join(tmp, "target.npz"), os.path.join(tmp, "target.png")
+    _cli_in_process("render", CORNELL, *size, "--spp", "4", "--bounces", str(INV_BOUNCES), "--save-radiance",
+                    target, "--out", tpng)
+    inv = ["inverse", CORNELL, *size, "--spp", str(INV_SPP), "--bounces", str(INV_BOUNCES), "--steps", "5"]
+    ck = os.path.join(tmp, "inv.ckpt.npz")
+    with deterministic():
+        t0 = time.perf_counter()
+        out_a, _ = _cli_in_process(*inv, "--target", target, "--checkpoint", ck, "--checkpoint-every", "2",
+                                   "--out", os.path.join(tmp, "a.npz"))
+        dt = time.perf_counter() - t0
+        with np.load(ck) as z:
+            at = int(z["step"])
+        out_b, _ = _cli_in_process(*inv, "--target", target, "--resume", ck, "--checkpoint",
+                                   os.path.join(tmp, "inv_b.npz"), "--out", os.path.join(tmp, "b.npz"))
+    _, err_c = _cli_in_process(*inv[:-1], "2", "--target", tpng, "--checkpoint", os.path.join(tmp, "inv_c.npz"),
+                               "--out", os.path.join(tmp, "c.npz"))
+    sa, sb = _last_json(out_a), _last_json(out_b)
+    print(f"inverse 5 steps in {dt:.2f} s: {json.dumps(sa)}; resumed at step {at}: {json.dumps(sb)}")
+    a, b = np.load(os.path.join(tmp, "a.npz")), np.load(os.path.join(tmp, "b.npz"))
+    same = all(np.array_equal(a[k], b[k]) for k in ("kd", "ks", "radiance"))
+    print(f"resumed parameters equal the uninterrupted run's bitwise {same}; last loss {a['losses'][-1]:.9g} / "
+          f"{b['losses'][-1]:.9g}; unconstrained kd {sa['unconstrained_kd_materials']}")
+    if at != 4 or sb["steps"] != 1 or not same or a["losses"][-1] != b["losses"][-1]:
+        raise AssertionError("the resumed inverse run differs from the uninterrupted one")
+    if not sa["unconstrained_kd_materials"] or not np.isfinite(a["losses"]).all():
+        raise AssertionError(f"inverse: {sa}")
+    if "WARNING" not in err_c or "saturated" not in err_c:
+        raise AssertionError("no saturation warning with the PNG target")
+    print(f"PNG target: {err_c.strip().splitlines()[0][:120]}")
+
+
+def _grazing_rays():
+    """tests/test_torch_f64.py's case: one triangle at (1e4, 1e4, 0), legs
+    along x and y, rays straight down 1e-5 and 3e-6 inside and outside each
+    of its three edges; and the numpy f64 oracle's hit flags."""
+    import numpy as np
+
+    base, offs = 1.0e4, (1e-5, 3e-6, -3e-6, -1e-5)
+    pts = []
+    for off in offs:
+        pts += [(base + off, base + 0.5), (base + 0.5, base + off), (base + 0.5 - off, base + 0.5 - off)]
+    org = np.concatenate([np.array(pts), np.ones((len(pts), 1))], axis=1)
+    d = np.tile([0.0, 0.0, -1.0], (len(pts), 1))
+    v0, e1, e2 = np.array([base, base, 0.0]), np.array([1.0, 0.0, 0.0]), np.array([0.0, 1.0, 0.0])
+    h = np.cross(d, e2)
+    det = h @ e1
+    s = org - v0
+    u, v = np.sum(s * h, 1) / det, np.sum(d * np.cross(s, e1), 1) / det
+    want = (u >= 0) & (v >= 0) & (u + v <= 1)
+    return (v0, e1, e2), org, d, want
+
+
+@grad_phase("22 f64 geometry on the card")
+def f64_phase():
+    """MCPT_F64_GEOM=1's dense route on CUDA tensors: the grazing rays
+    against the numpy f64 oracle (f32 cannot tell them apart); then
+    cornell at 64x64 (2 spp, 8 bounces) with the variable set, card
+    against CPU under phase 5's contract."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from mcpt_tpu_torch.io.obj import load_scene
+    from mcpt_tpu_torch.ops import intersect
+    from mcpt_tpu_torch.render.renderer import RenderConfig, Renderer
+
+    tri, org, d, want = _grazing_rays()
+    f32 = [torch.tensor(x[None], dtype=torch.float32, device="cuda") for x in tri]
+    scene = types.SimpleNamespace(geom=types.SimpleNamespace(v0=f32[0], e1=f32[1], e2=f32[2]), num_tris=1,
+                                  woop=None)
+    o, dd = torch.tensor(org, device="cuda"), torch.tensor(d, device="cuda")
+    os.environ["MCPT_F64_GEOM"] = "1"
+    try:
+        hit = intersect.closest_hit(scene, o, dd).tri.cpu().numpy() >= 0
+        occ = intersect.any_hit(scene, o, dd).cpu().numpy()
+        imgs = []
+        for dev in ("cuda", "cpu"):
+            r = Renderer(load_scene(CORNELL, device=dev), RenderConfig(max_bounces=8, width=64, height=64,
+                                                                       spp_per_pass=2, seed=1))
+            r.step()
+            if r.stats["nan_scrubbed"]:
+                raise AssertionError(f"f64 cornell render scrubbed {r.stats['nan_scrubbed']} NaNs on {dev}")
+            imgs.append((r.film.accum / r.film.spp).cpu().numpy())
+    finally:
+        del os.environ["MCPT_F64_GEOM"]
+    f32_hit = intersect.closest_hit(scene, o.float(), dd.float()).tri.cpu().numpy() >= 0
+    o32 = org.astype(np.float32)
+    print(f"grazing rays at 1e4: f64 on the card hits {hit.astype(int).tolist()}, any {occ.astype(int).tolist()}; "
+          f"the f64 oracle {want.astype(int).tolist()}; f32 hits {f32_hit.astype(int).tolist()}")
+    if not (np.array_equal(hit, want) and np.array_equal(occ, want)):
+        raise AssertionError("the f64 dense route disagrees with the f64 oracle on the card")
+    if not (o32[:6] == o32[6:]).all() or np.array_equal(f32_hit, want):
+        raise AssertionError("f32 told the grazing rays apart: the case does not test double")
+    _render_contract("cornell 64x64x2spp, MCPT_F64_GEOM=1", *imgs)
+
+
+def _stress_cam(scene):
+    """The stress scene at its camera's 1280x720."""
+    return _sized(scene, BATH_W, BATH_H)
+
+
+def _mesh_ranks(rank, n, store, out):
+    """The ranks of phase 23's ShardedRenderer and dry-run checks: two gloo
+    ranks sharing the card."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from mcpt_tpu_torch.diff.inverse import dryrun_grad_step
+    from mcpt_tpu_torch.io.obj import load_scene
+    from mcpt_tpu_torch.parallel.mesh import make_mesh
+    from mcpt_tpu_torch.parallel.shard import ShardedRenderer, measure_scaling
+
+    t0 = time.perf_counter()
+    times = {}
+    dist.init_process_group("gloo", init_method=f"file://{store}", world_size=n, rank=rank)
+    torch.cuda.set_device(0)
+    mesh = make_mesh(2, 1, device="cuda")
+    (s,) = stress_scene(SMALL_STRESS_TRIS, 0, ("cuda",))
+    times["start"] = time.perf_counter() - t0
+    _reset_counts()
+    r = ShardedRenderer(_stress_cam(s), mesh=mesh, max_bounces=MAX_BOUNCES, spp_per_pass=1)
+    r.step()
+    launches = _read_counts()[0]
+    film = r.film
+    times["render"] = time.perf_counter() - t0 - sum(times.values())
+    scaling = measure_scaling(_stress_cam(s), mesh)
+    times["scaling"] = time.perf_counter() - t0 - sum(times.values())
+    veach = _sized(load_scene(VEACH, device="cuda"), DRYRUN_W, DRYRUN_H)
+    loss, grads, params = dryrun_grad_step(veach, mesh)
+    times["dryrun"] = time.perf_counter() - t0 - sum(times.values())
+    torch.save({"accum": film.accum.cpu(), "rays": film.rays, "nan_count": film.nan_count,
+                "launches": launches, "scaling": scaling, "loss": loss.cpu(), "times": times,
+                "grads": {k: v.cpu() for k, v in grads.tensors().items()},
+                "params": {k: v.cpu() for k, v in params.tensors().items()}}, f"{out}.{rank}")
+    dist.destroy_process_group()
+
+
+def _same_film(label, got, want_accum, tol=None):
+    import numpy as np
+
+    a, b = np.asarray(got), np.asarray(want_accum)
+    diff = float(np.abs(a - b).max())
+    ok = np.array_equal(a, b) if tol is None else np.allclose(a, b, rtol=tol, atol=tol)
+    print(f"{label}: {'bitwise' if tol is None else f'within {tol}'} {ok} (max abs difference {diff:.3g})")
+    if not ok:
+        raise AssertionError(f"{label}: film differs from one process's")
+
+
+@grad_phase("23 multi-device on one card")
+def mesh_phase(tmp):
+    """veach-mis at 1024x1024, 24 bounces, one pass of 2 spp through
+    `render --mesh`: 2x1 (gloo, two ranks sharing the card) and 1x1 (NCCL)
+    bitwise against one process, 1x2 within SPP_AXIS_TOL. Then two gloo
+    ranks: a 2x1 ShardedRenderer on the 5,986-triangle stress scene at
+    1280x720 (the traversal kernels), bitwise against one process;
+    measure_scaling's balance; dryrun_grad_step on veach at 256x128 against
+    one process within DRYRUN_LOSS_RTOL and DRYRUN_GRAD_TOL."""
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from mcpt_tpu_torch.diff.inverse import dryrun_grad_step
+    from mcpt_tpu_torch.io.obj import load_scene
+    from mcpt_tpu_torch.render.renderer import RenderConfig, Renderer
+
+    base = ["render", VEACH, "--width", str(WIDTH), "--height", str(HEIGHT), "--spp", "2", "--bounces",
+            str(MAX_BOUNCES)]
+    one = os.path.join(tmp, "one.npz")
+    out, _ = _cli_in_process(*base, "--out", os.path.join(tmp, "one.png"), "--save-radiance", one)
+    single = _radiance(one)
+    for spec, tol in (("2x1", None), ("1x2", SPP_AXIS_TOL), ("1x1", None)):
+        path = os.path.join(tmp, f"mesh_{spec}.npz")
+        t0 = time.perf_counter()
+        out, _ = _cli_in_process(*base, "--mesh", spec, "--out", os.path.join(tmp, f"mesh_{spec}.png"),
+                                 "--save-radiance", path)
+        backend = [ln for ln in out.splitlines() if ln.startswith("[render] mesh")]
+        print(f"--mesh {spec} in {time.perf_counter() - t0:.2f} s: {backend[0] if backend else '?'}")
+        want = "nccl" if spec == "1x1" else "gloo"
+        if not backend or not backend[0].endswith(f"backend {want}"):
+            raise AssertionError(f"--mesh {spec} did not run on {want}")
+        _same_film(f"veach 1024x1024 --mesh {spec}", _radiance(path), single, tol)
+
+    (s,) = stress_scene(SMALL_STRESS_TRIS, 0, ("cuda",))
+    r = Renderer(_stress_cam(s), RenderConfig(max_bounces=MAX_BOUNCES, spp_per_pass=1))
+    r.step()
+    veach = _sized(load_scene(VEACH, device="cuda"), DRYRUN_W, DRYRUN_H)
+    loss, grads, _ = dryrun_grad_step(veach)
+    res_path = os.path.join(tmp, "ranks.pt")
+    t0 = time.perf_counter()
+    mp.start_processes(_mesh_ranks, args=(2, os.path.join(tmp, "store"), res_path), nprocs=2, join=True,
+                       start_method="spawn")
+    res, res1 = (torch.load(f"{res_path}.{r}") for r in range(2))
+    rank0 = json.dumps({k: round(v, 2) for k, v in res["times"].items()})
+    print(f"2 gloo ranks in {time.perf_counter() - t0:.2f} s (rank 0's seconds {rank0}); stress {BATH_W}x{BATH_H} "
+          f"launches {res['launches']}")
+    if min(res["launches"]["traverse_closest"], res["launches"]["traverse_any"]) == 0:
+        raise AssertionError(f"the sharded stress render did not launch the traversal kernels: {res['launches']}")
+    _same_film(f"stress-{SMALL_STRESS_TRIS} {BATH_W}x{BATH_H} ShardedRenderer 2x1", res["accum"],
+               r.film.accum.cpu())
+    if res["rays"] != r.film.rays or res["nan_count"] != r.film.nan_count:
+        raise AssertionError(f"counts: {res['rays']}, {res['nan_count']} against {r.film.rays}, {r.film.nan_count}")
+    sc = res["scaling"]
+    print(f"measure_scaling 2x1: rays a rank {sc['rays_per_device']}, balance {sc['balance_efficiency']:.4f}")
+    if sc["total_rays"] <= 0 or not 0.5 < sc["balance_efficiency"] <= 1.0:
+        raise AssertionError(f"measure_scaling: {sc}")
+    errs = {"loss": abs(float(res["loss"]) - float(loss)) / float(loss)}
+    ok = errs["loss"] <= DRYRUN_LOSS_RTOL
+    for k, v in grads.tensors().items():
+        a, b = res["grads"][k].numpy(), v.cpu().numpy()
+        scale = float(np.abs(b).max())
+        errs[k] = float(np.abs(a - b).max()) / max(scale, 1e-30)
+        ok &= bool(np.allclose(a, b, rtol=DRYRUN_GRAD_TOL, atol=DRYRUN_GRAD_TOL * scale))
+    same = all(torch.equal(res["params"][k], res1["params"][k]) for k in res["params"])
+    print(f"dryrun_grad_step veach {DRYRUN_W}x{DRYRUN_H}, 2 ranks against one process: loss {float(res['loss']):.9g} "
+          f"/ {float(loss):.9g} (relative difference {errs.pop('loss'):.3g}); gradients' largest difference over "
+          f"their largest entry {json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})}; the ranks' "
+          f"parameters after the step equal bitwise {same}")
+    if not ok or not same or float(grads.kd.abs().max()) == 0:
+        raise AssertionError("dryrun_grad_step on 2 ranks disagrees with one process (loss rtol "
+                             f"{DRYRUN_LOSS_RTOL}, gradients {DRYRUN_GRAD_TOL}) or the ranks' steps differ")
+
+
+def port_cli_phases(wanted=(19, 20, 21, 22, 23)):
+    """Phases 19-23, each in a directory of its own."""
+    phases = {19: cli_headline_phase, 20: kill_resume_phase, 21: inverse_cli_phase, 22: f64_phase,
+              23: mesh_phase}
+    for n in sorted(wanted):
+        with tempfile.TemporaryDirectory() as tmp:
+            phases[n]() if n == 22 else phases[n](tmp)
+
+
 # With --save-closest-batch PATH, phase 8 saves the rays of the bathroom
 # pass's third closest-hit launch there; with --save-batches DIR, phases 3,
 # 4, 7, 8, 11 and 12 save their timed batches there (for time_closest_batch.py).
@@ -1758,6 +2201,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Drive the mcpt_tpu_torch port once on one CUDA card and check it.")
     ap.add_argument("--save-closest-batch", metavar="PATH", help="save phase 8's third closest-hit batch")
     ap.add_argument("--save-batches", metavar="DIR", help="save the timed batches of phases 3, 4, 7, 8, 11 and 12")
+    ap.add_argument("--only", metavar="PHASES", help="run phases 1-2, then only these of phases 19-23 "
+                    "(comma-separated), and print no result line: for development")
     args = ap.parse_args()
     if args.save_closest_batch:
         SAVE_CLOSEST_BATCH = os.path.abspath(args.save_closest_batch)
@@ -1773,6 +2218,10 @@ def main() -> int:
     global CARD
     card = CARD = device_info()
     build_kernels()
+    if args.only:
+        port_cli_phases({int(x) for x in args.only.split(",")})
+        print(f"total {time.perf_counter() - t_start:.2f} s; phases 1-2 and {args.only} only, no result")
+        return 0
 
     from mcpt_tpu_torch.io.obj import load_scene
 
@@ -1804,6 +2253,7 @@ def main() -> int:
     grad_launches.update({k: v for k, v in traversal_grad_phase(bath)[0].items() if k.startswith("traverse_")})
     del bath
     edge_phase()
+    port_cli_phases()
     print(f"launches in one gradient step (veach 1024x1024 for woop, bathroom 1280x720 for traverse): "
           f"{json.dumps(grad_launches)}")
     print(f"total {time.perf_counter() - t_start:.2f} s")

@@ -178,3 +178,49 @@ def run_inverse(scene: Scene, target, init_params: SceneParams, steps: int = 500
         if checkpoint_every and checkpoint_path and (i + 1) % checkpoint_every == 0:
             checkpoint_save_inverse(state, checkpoint_path)
     return state.params, losses
+
+
+def dryrun_grad_step(scene: Scene, mesh=None, max_bounces: int = 3, learning_rate: float = 1e-2):
+    """One sharded render -> gradient -> Adam step over a mesh
+    (parallel/mesh.py; None: one process holding the whole image).
+
+    Port of mcpt_tpu/diff/inverse.py dryrun_grad_step: tile ti renders the
+    contiguous row block [ti*rows, (ti+1)*rows) with one sample a pixel
+    (key 0), its loss is the block's squared radiance over W*H*3 (MSE
+    against black), and the loss and the parameter gradients are
+    all_reduced (summed) over the whole mesh before one Adam step, as the
+    reference's psum over both axes does (spp ranks repeat their tile's
+    loss). Every rank gets (loss, gradients, the parameters after the
+    step)."""
+    from mcpt_tpu_torch.diff.grad import apply_params, extract_params
+    from mcpt_tpu_torch.render.integrator import path_tables, trace_image
+
+    cam = scene.camera
+    W, H = cam.width, cam.height
+    nt, ti = (mesh.n_tiles, mesh.ti) if mesh is not None else (1, 0)
+    if H % nt:
+        raise ValueError(f"image height {H} is not divisible by the mesh's {nt} tiles")
+    rows = H // nt
+    key = prng_key(0)
+    pixel_idx = ti * rows * W + torch.arange(rows * W, device=scene.device)
+
+    def local_loss(params):
+        sc = apply_params(scene, params)
+        rad = trace_image(sc, sc.camera, key, pixel_idx, max_bounces, path_tables(sc))
+        return torch.sum(rad ** 2) / (W * H * 3)
+
+    loss, grads = value_and_grad(local_loss, extract_params(scene))
+    if mesh is not None:
+        from mcpt_tpu_torch.parallel.mesh import all_reduce
+
+        for x in (loss, *grads.tensors().values()):
+            all_reduce(x, mesh, mesh.group)
+    if not float(loss) >= 0.0:
+        raise RuntimeError(f"dry-run loss {float(loss)} is not a non-negative number")
+    leaves = {k: v.detach().clone() for k, v in extract_params(scene).tensors().items()}
+    opt = torch.optim.Adam(list(leaves.values()), lr=learning_rate, betas=BETAS, eps=EPS)
+    with torch.no_grad():
+        for name, x in leaves.items():
+            x.grad = getattr(grads, name).clone()
+        opt.step()
+    return loss, grads, dataclasses.replace(grads, **leaves)

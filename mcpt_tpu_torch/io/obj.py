@@ -179,23 +179,23 @@ def load_obj(path: str) -> HostScene:
 
 
 def build_atlas(table: MaterialTable):
-    """map_Kd images -> one padded [N,H,W,3] block (LDR images promoted with
-    gamma 2.2, as stbi_loadf does). Returns ((data, size) or None, tex_id)."""
+    """map_Kd images -> one padded [N,H,W,3] block: Radiance .hdr images
+    stay linear, LDR images are promoted with gamma 2.2, as stbi_loadf does
+    (src/model.cpp:8-23). Returns ((data, size) or None, tex_id)."""
     paths = [p for p in table.tex_path if p is not None]
     tex_id = np.full(len(table.names), -1, np.int32)
     if not paths:
         return None, tex_id
-    from PIL import Image
+    from mcpt_tpu_torch.io.image import load_hdr, load_png
 
     unique = sorted(set(paths))
     slot = {p: i for i, p in enumerate(unique)}
     imgs = []
     for p in unique:
         if p.lower().endswith(".hdr"):
-            raise NotImplementedError(
-                f"{p}: .hdr textures are not ported yet (mcpt_tpu.io.image.load_hdr)")
-        im = np.asarray(Image.open(p).convert("RGB"), np.float32) / 255.0
-        imgs.append(im ** 2.2)
+            imgs.append(load_hdr(p))
+        else:
+            imgs.append(load_png(p) ** 2.2)
     H = max(im.shape[0] for im in imgs)
     W = max(im.shape[1] for im in imgs)
     data = np.zeros((len(imgs), H, W, 3), np.float32)

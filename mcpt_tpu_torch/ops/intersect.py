@@ -9,7 +9,9 @@ Port of mcpt_tpu/ops/intersect.py. Epsilons follow the reference
 
 Dispatch by triangle count:
   * T <= DENSE_KERNEL_MIN_TRIS (cornell): the dense torch Moller-Trumbore
-    wave below, which is also the oracle for the kernels;
+    wave below, which is also the oracle for the kernels; in double with
+    MCPT_F64_GEOM=1 (f64_geom), at mcpt_tpu's place in the dispatch: after
+    the kernel routes, which stay f32;
   * DENSE_KERNEL_MIN_TRIS < T <= BRUTE_FORCE_MAX_TRIS (veach): the
     hand-written Woop kernel pair (ops/woop.py, csrc/woop.cu);
   * T > BRUTE_FORCE_MAX_TRIS (bathroom): the hand-written BVH traversal
@@ -37,7 +39,12 @@ DET_EPS_CLOSEST = 1e-5
 DET_EPS_ANY = 1e-6
 
 DEFAULT_CHUNK = 512  # triangles per dense wave
-_RAY_BLOCK = 1 << 14  # rays per dense wave, bounds the [R, C] temporaries
+_RAY_BLOCK = 1 << 14  # rays per dense wave on the CPU, bounds the [R, C] temporaries
+# ray-triangle pairs per dense wave on a card: one wave of a 1024x1024
+# cornell batch (2^20 rays x 32 triangles, ~2 GiB of temporaries) instead
+# of 64, each of ~40 small kernels. Rays are independent, so the wave size
+# changes no answer.
+_CUDA_WAVE_PAIRS = 1 << 25
 
 BRUTE_FORCE_MAX_TRIS = 4096
 DENSE_KERNEL_MIN_TRIS = 256
@@ -65,8 +72,18 @@ class Hit:
         return self.tri >= 0
 
 
-def _mt_candidates(v0, e1, e2, org, dirn, det_eps):
-    """Moller-Trumbore for rays [R,3] x triangles [C,3] -> t, u, v, ok [R,C]."""
+def f64_geom() -> bool:
+    """MCPT_F64_GEOM=1: the dense route intersects in double, as the
+    reference traces geometry (src/utils.h:5-18) and as mcpt_tpu's dense
+    route does under the same variable. Read at each call."""
+    return os.environ.get("MCPT_F64_GEOM") == "1"
+
+
+def _mt_candidates(v0, e1, e2, org, dirn, det_eps, f64: bool = False):
+    """Moller-Trumbore for rays [R,3] x triangles [C,3] -> t, u, v, ok [R,C];
+    `f64` evaluates the whole predicate in double."""
+    if f64:
+        v0, e1, e2, org, dirn = (x.double() for x in (v0, e1, e2, org, dirn))
     o = org[:, None, :]
     d = dirn[:, None, :]
     h = cross(d, e2[None])
@@ -81,8 +98,13 @@ def _mt_candidates(v0, e1, e2, org, dirn, det_eps):
     return t * inv, u * inv, v * inv, ok
 
 
-def _bound(x, R, device):
-    x = torch.as_tensor(x, dtype=torch.float32, device=device)
+def _bound(x, R, device, f64: bool = False):
+    """A t bound as [R,1]: f32, or with `f64` double (a Python number as
+    double, a tensor widened exactly), as mcpt_tpu promotes it under x64."""
+    if isinstance(x, torch.Tensor):
+        x = x.to(device=device, dtype=torch.float64 if f64 else torch.float32)
+    else:
+        x = torch.as_tensor(x, dtype=torch.float64 if f64 else torch.float32, device=device)
     return x.expand(R)[:, None] if x.dim() == 0 else x[:, None]
 
 
@@ -102,26 +124,37 @@ def _pad_chunks(scene: Scene, chunk: int):
     return p(g.v0), p(g.e1), p(g.e2), valid, chunk
 
 
+def _ray_block(device, chunk: int) -> int:
+    """Rays per dense wave of `chunk` triangles on `device`."""
+    if device.type == "cuda":
+        return max(_RAY_BLOCK, _CUDA_WAVE_PAIRS // chunk)
+    return _RAY_BLOCK
+
+
 def closest_hit_bruteforce(scene: Scene, org, dirn, t_min=T_MIN, t_max=F32_MAX,
-                           chunk: int = DEFAULT_CHUNK) -> Hit:
-    """Intersect-all closest hit in [rays, chunk] waves."""
+                           chunk: int = DEFAULT_CHUNK, f64: bool = False) -> Hit:
+    """Intersect-all closest hit in [rays, chunk] waves. `f64` tests in
+    double; each chunk's nearest t is then rounded to f32 before it is
+    compared across chunks, as in mcpt_tpu (t f32, tri i32 either way)."""
     R = org.shape[0]
     dev = org.device
-    tm_all, tM_all = _bound(t_min, R, dev), _bound(t_max, R, dev)
+    tm_all, tM_all = _bound(t_min, R, dev, f64), _bound(t_max, R, dev, f64)
     v0c, e1c, e2c, validc, chunk = _pad_chunks(scene, chunk)
     best_t = torch.full((R,), F32_MAX, device=dev)
     best_tri = torch.full((R,), -1, dtype=torch.int32, device=dev)
-    for r0 in range(0, R, _RAY_BLOCK):
-        rs = slice(r0, min(R, r0 + _RAY_BLOCK))
+    block = _ray_block(dev, chunk)
+    for r0 in range(0, R, block):
+        rs = slice(r0, min(R, r0 + block))
         bt, btri = best_t[rs], best_tri[rs]
         tm, tM = tm_all[rs], tM_all[rs]
         for c in range(v0c.shape[0]):
             t, u, v, ok = _mt_candidates(v0c[c], e1c[c], e2c[c], org[rs], dirn[rs],
-                                         DET_EPS_CLOSEST)
+                                         DET_EPS_CLOSEST, f64)
             accept = (ok & (t >= tm) & (t < tM) & (u >= 0) & (v >= 0)
                       & (1.0 - u - v >= 0) & validc[c][None, :])
             t_cand = torch.where(accept, t, F32_MAX)
             row_t, row_i = torch.min(t_cand, dim=1)  # first index on ties
+            row_t = row_t.float()
             better = row_t < bt
             bt = torch.where(better, row_t, bt)
             btri = torch.where(better, (row_i + c * chunk).to(torch.int32), btri)
@@ -130,19 +163,21 @@ def closest_hit_bruteforce(scene: Scene, org, dirn, t_min=T_MIN, t_max=F32_MAX,
 
 
 def any_hit_bruteforce(scene: Scene, org, dirn, t_min=T_MIN, t_max=F32_MAX,
-                       chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
-    """Boolean occlusion test (shadow rays), inclusive t interval."""
+                       chunk: int = DEFAULT_CHUNK, f64: bool = False) -> torch.Tensor:
+    """Boolean occlusion test (shadow rays), inclusive t interval; `f64`
+    tests in double."""
     R = org.shape[0]
     dev = org.device
-    tm_all, tM_all = _bound(t_min, R, dev), _bound(t_max, R, dev)
+    tm_all, tM_all = _bound(t_min, R, dev, f64), _bound(t_max, R, dev, f64)
     v0c, e1c, e2c, validc, chunk = _pad_chunks(scene, chunk)
     out = torch.zeros((R,), dtype=torch.bool, device=dev)
-    for r0 in range(0, R, _RAY_BLOCK):
-        rs = slice(r0, min(R, r0 + _RAY_BLOCK))
+    block = _ray_block(dev, chunk)
+    for r0 in range(0, R, block):
+        rs = slice(r0, min(R, r0 + block))
         tm, tM = tm_all[rs], tM_all[rs]
         for c in range(v0c.shape[0]):
             t, u, v, ok = _mt_candidates(v0c[c], e1c[c], e2c[c], org[rs], dirn[rs],
-                                         DET_EPS_ANY)
+                                         DET_EPS_ANY, f64)
             accept = (ok & (u >= 0) & (u <= 1.0) & (v >= 0) & (u + v <= 1.0)
                       & (t >= tm) & (t <= tM) & validc[c][None, :])
             out[rs] |= accept.any(dim=1)
@@ -232,7 +267,7 @@ def closest_hit(scene: Scene, org, dirn, t_min=T_MIN, t_max=F32_MAX) -> Hit:
 
         t, tri, u, v = closest_hit_woop(scene.woop, org, dirn, t_min, t_max)
         return Hit(t=t, tri=tri, u=u, v=v)
-    return closest_hit_bruteforce(scene, org, dirn, t_min, t_max)
+    return closest_hit_bruteforce(scene, org, dirn, t_min, t_max, f64=f64_geom())
 
 
 def any_hit(scene: Scene, org, dirn, t_min=T_MIN, t_max=F32_MAX) -> torch.Tensor:
@@ -251,4 +286,4 @@ def any_hit(scene: Scene, org, dirn, t_min=T_MIN, t_max=F32_MAX) -> torch.Tensor
         from mcpt_tpu_torch.ops.woop import any_hit_woop
 
         return any_hit_woop(scene.woop, org, dirn, t_min, t_max)
-    return any_hit_bruteforce(scene, org, dirn, t_min, t_max)
+    return any_hit_bruteforce(scene, org, dirn, t_min, t_max, f64=f64_geom())

@@ -30,6 +30,7 @@ math (nee_sample, bsdf_continue, emission_contrib) from the same helpers.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
@@ -49,8 +50,10 @@ EMIT_DIRECT_THRESH = 1e-4  # bounce-0 direct add (Render.cpp:121)
 RR_START_BOUNCE = 3  # RR applies when bounces > 3 (Render.cpp:164)
 RR_CLAMP = 0.95
 
-# Lanes per wavefront chunk: the whole image in one chunk, capped by the
-# memory of ~30 [R]-lane state buffers.
+# Rays per chunk of the fixed-bounce loop (trace_image), and
+# trace_image_wavefront's default. The split renderer's chunk is the whole
+# image (chunk_rays_for), capped by the memory of ~30 [R]-lane state
+# buffers.
 DEFAULT_CHUNK_RAYS = 32768
 SPLIT_CHUNK_RAYS_MAX = 1 << 21
 
@@ -360,10 +363,59 @@ def trace_image(scene: Scene, cam, sample_key, pixel_idx, max_bounces: int, tabl
     return torch.cat(rads)
 
 
+def trace_wavefront(scene: Scene, cam, key, pixel_idx, start_idx: int, spp: int, max_bounces: int,
+                    lane_valid=None):
+    """`spp` samples (ids start_idx, start_idx+1, ...) for each lane's pixel
+    of `pixel_idx`, one wavefront of lanes: (L_sum [R,3], traced rays,
+    NaN components scrubbed, iterations), the last three 0-d tensors.
+    Lanes where `lane_valid` is False start with their samples done.
+
+    mcpt_tpu's loop-mode trace_wavefront (one XLA while loop) has the same
+    signature and returns; the port runs the split iteration it is bitwise
+    equal to (render/renderer.trace_chunk_split), the one integrator here.
+    """
+    from mcpt_tpu_torch.render.renderer import trace_chunk_split
+
+    if cam is not scene.camera:
+        scene = dataclasses.replace(scene, camera=cam)
+    return trace_chunk_split(scene, pixel_idx.long(), lane_valid, key, int(start_idx), max_bounces, spp)
+
+
+def trace_image_wavefront(scene: Scene, cam, key, pixel_idx, start_idx: int, spp: int, max_bounces: int,
+                          chunk_rays: int = DEFAULT_CHUNK_RAYS):
+    """trace_wavefront over `pixel_idx` in chunks of `chunk_rays` lanes
+    (the last chunk padded with finished lanes): (L_sum [R,3], traced rays,
+    NaN components scrubbed), the counts 0-d tensors. The RNG is keyed by
+    (pixel, global sample id), so the chunking changes no sample; unlike
+    mcpt_tpu's, a chunk is not cut to R lanes, so a renderer that gives a
+    part of an image the whole image's chunk size traces its pixels in the
+    same number of lanes as the whole image's pass."""
+    R = pixel_idx.shape[0]
+    dev = pixel_idx.device
+    chunk = max(1, chunk_rays)
+    n_chunks = max(1, -(-R // chunk))
+    Rp = n_chunks * chunk
+    pidx = torch.cat([pixel_idx.long(), torch.zeros(Rp - R, dtype=torch.int64, device=dev)])
+    lane_valid = torch.arange(Rp, device=dev) < R
+    parts = []
+    nrays = torch.zeros((), dtype=torch.int64, device=dev)
+    nan_ct = torch.zeros((), dtype=torch.int64, device=dev)
+    for i in range(n_chunks):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        L, nr, nc, _ = trace_wavefront(scene, cam, key, pidx[sl], start_idx, spp, max_bounces,
+                                       lane_valid=None if Rp == R else lane_valid[sl])
+        parts.append(L)
+        nrays = nrays + nr
+        nan_ct = nan_ct + nc
+    return torch.cat(parts)[:R], nrays, nan_ct
+
+
 def chunk_rays_for(scene) -> int:
-    """Lanes per wavefront chunk: the whole image, capped by memory."""
+    """Lanes per wavefront chunk: the whole image, capped by memory. (mcpt_tpu
+    pads a smaller image to DEFAULT_CHUNK_RAYS lanes, a fixed shape for XLA;
+    here padding lanes only cost time, most of all on the CPU.)"""
     cam = scene.camera
-    return min(max(cam.width * cam.height, DEFAULT_CHUNK_RAYS), SPLIT_CHUNK_RAYS_MAX)
+    return min(max(cam.width * cam.height, 1), SPLIT_CHUNK_RAYS_MAX)
 
 
 def split_state0(R: int, spp: int, lane_valid=None, *, device) -> dict:

@@ -1,7 +1,8 @@
 """Progressive renderer: `Renderer.step` adds `spp_per_pass` samples per pixel.
 
 Port of mcpt_tpu/render/renderer.py's split path: render_pass_chunked runs
-each pixel chunk through trace_chunk_split, the host loop that alternates
+each pixel chunk (integrator.trace_image_wavefront) through
+trace_chunk_split, the host loop that alternates
 P (integrator.split_trace: the intersection kernels) and X
 (integrator.split_shade) until every lane has finished its samples.
 """
@@ -17,7 +18,7 @@ import torch
 from mcpt_tpu_torch.ops.intersect import F32_MAX
 from mcpt_tpu_torch.render.film import Film, make_film
 from mcpt_tpu_torch.render.integrator import (
-    chunk_rays_for, split_shade, split_state0, split_trace,
+    chunk_rays_for, split_shade, split_state0, split_trace, trace_image_wavefront,
 )
 from mcpt_tpu_torch.scene import Scene
 from mcpt_tpu_torch.utils.rng import prng_key
@@ -106,23 +107,11 @@ def render_pass_chunked(scene: Scene, film: Film, key, start_idx: int, max_bounc
     """Add `spp_per_pass` samples per pixel, one wavefront chunk of pixels at a time."""
     cam = scene.camera
     R = cam.width * cam.height
-    dev = scene.device
-    chunk = chunk or chunk_rays_for(scene)
-    n_chunks = -(-R // chunk)
-    Rp = n_chunks * chunk
-    pidx = torch.cat([torch.arange(R, device=dev), torch.zeros(Rp - R, dtype=torch.int64, device=dev)])
-    lane_valid = torch.arange(Rp, device=dev) < R
-    parts, nrays, nan_ct = [], 0, 0
-    for i in range(n_chunks):
-        sl = slice(i * chunk, (i + 1) * chunk)
-        L, nr, nc, _ = trace_chunk_split(scene, pidx[sl], lane_valid[sl], key, start_idx,
-                                         max_bounces, spp_per_pass)
-        parts.append(L)
-        nrays += int(nr)
-        nan_ct += int(nc)
-    img = torch.cat(parts)[:R].reshape(cam.height, cam.width, 3)
+    L, nrays, nan_ct = trace_image_wavefront(scene, cam, key, torch.arange(R, device=scene.device), start_idx,
+                                             spp_per_pass, max_bounces, chunk_rays=chunk or chunk_rays_for(scene))
+    img = L.reshape(cam.height, cam.width, 3)
     return Film(accum=film.accum + img, spp=film.spp + spp_per_pass,
-                nan_count=film.nan_count + nan_ct, rays=film.rays + float(nrays))
+                nan_count=film.nan_count + int(nan_ct), rays=film.rays + float(nrays))
 
 
 class Renderer:

@@ -4,6 +4,7 @@ without one). Run on a machine with an NVIDIA GPU and nvcc:
     python -m pytest tests/test_torch_cuda.py -m cuda
 """
 import os
+import sys
 
 import pytest
 import torch
@@ -543,3 +544,94 @@ def test_inverse_step_on_card():
     assert torch.isfinite(loss) and int(st.scrubbed) == 0
     assert all(torch.isfinite(v).all() for v in st.params.tensors().values())
     assert not torch.equal(st.params.kd, start.kd)
+
+
+TESTS = os.path.join(ROOT, "tests")
+
+
+def _tests_module(name):
+    """A helper module of tests/ by file name: these tests run with
+    --noconftest, where a package named `tests` elsewhere on the path may
+    shadow this directory."""
+    import importlib
+
+    sys.path.insert(0, TESTS)
+    try:
+        return importlib.import_module(name)
+    finally:
+        sys.path.remove(TESTS)
+
+
+def test_cli_render_and_resume_on_card(veach_cuda, tmp_path, capsys):
+    """`render` on the card (veach-mis at 64x64, 4 bounces, 1 spp a pass,
+    the Woop kernels): a resume from the 1-spp checkpoint gives the
+    uninterrupted run's PNG and radiance bit for bit."""
+    import numpy as np
+    from PIL import Image
+
+    from mcpt_tpu_torch.cli import main
+    from mcpt_tpu_torch.ops import woop
+
+    scene = os.path.join(ROOT, "scenes", "veach-mis.obj")
+    base = ["render", scene, "--width", "64", "--height", "64", "--spp-per-pass", "1", "--bounces", "4"]
+    ck = str(tmp_path / "ck.npz")
+    before = woop.LAUNCHES["closest"]
+    assert main(base + ["--spp", "1", "--checkpoint", ck, "--checkpoint-every", "1",
+                        "--out", str(tmp_path / "one.png")]) == 0
+    assert woop.LAUNCHES["closest"] > before
+    outs = {}
+    for name, extra in (("resumed", ["--resume", ck]), ("full", [])):
+        png, rad = str(tmp_path / f"{name}.png"), str(tmp_path / f"{name}.npz")
+        assert main(base + ["--spp", "2", "--out", png, "--save-radiance", rad, *extra]) == 0
+        outs[name] = (np.asarray(Image.open(png)), np.load(rad)["radiance"])
+    assert '"nan_scrubbed": 0' in capsys.readouterr().out
+    for a, b in zip(outs["resumed"], outs["full"]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_f64_grazing_rays_on_card():
+    """The f64 dense route on CUDA tensors tells apart rays 1e-5 either
+    side of a triangle's edges at 1e4 (tests/test_torch_f64.py's case),
+    which f32 cannot, and equals the CPU's answers."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import types
+
+    from mcpt_tpu_torch.ops.intersect import any_hit_bruteforce, closest_hit_bruteforce
+
+    f64_case = _tests_module("test_torch_f64")
+    OFFSETS = f64_case.OFFSETS
+    v0, e1, e2, org, d = f64_case._grazing()
+    inside = [off > 0 for off in OFFSETS for _ in range(3)]
+    for dev in ("cuda", "cpu"):
+        f = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+        scene = types.SimpleNamespace(geom=types.SimpleNamespace(v0=f(v0), e1=f(e1), e2=f(e2)))
+        o, dd = torch.tensor(org, device=dev), torch.tensor(d, device=dev)
+        hit = closest_hit_bruteforce(scene, o, dd, f64=True)
+        assert (hit.tri >= 0).tolist() == inside
+        assert any_hit_bruteforce(scene, o, dd, f64=True).tolist() == inside
+        if dev == "cuda":
+            card = hit
+    assert torch.equal(card.t.cpu(), hit.t) and torch.equal(card.tri.cpu(), hit.tri)
+
+
+def test_two_rank_gloo_sharded_render_on_one_card(veach_cuda, tmp_path):
+    """A 2x1 ShardedRenderer of two gloo ranks sharing the card (veach at
+    64x64, 4 bounces, 2 spp) gives the single-process film bit for bit, its
+    ranks launching the Woop kernels."""
+    from mcpt_tpu_torch.ops import _build
+    from mcpt_tpu_torch.render.renderer import RenderConfig, Renderer
+
+    _build.library()  # built here, so that the ranks only load it
+    sys.path.insert(0, TESTS)  # the spawned ranks import the rank program by this path
+    try:
+        M = _tests_module("torch_mesh_ranks")
+        res = M.spawn(M.card_two_ranks, 2, tmp_path, device="cuda")
+    finally:
+        sys.path.remove(TESTS)
+    r = Renderer(veach_cuda, RenderConfig(max_bounces=4, spp_per_pass=2, width=64, height=64))
+    r.step()
+    for x in res:
+        assert x["backend"] == "gloo" and x["launches"]["closest"] > 0
+        assert torch.equal(x["film"]["accum"], r.film.accum.cpu())
+        assert x["film"]["rays"] == r.film.rays and x["film"]["nan_count"] == r.film.nan_count

@@ -127,6 +127,31 @@ def test_gradient_step_with_jax_blocked():
     assert out.strip() == "OK []"
 
 
+def test_cli_renders_with_jax_blocked(tmp_path):
+    """`python -m mcpt_tpu_torch render ... --device cpu` (cornell 16x16, 1
+    spp, 2 bounces, with a checkpoint and the live frame) with jax, jaxlib
+    and mcpt_tpu unimportable; the scan above covers the CLI, the terminal
+    preview and the parallel package."""
+    rel = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for name in ("cli.py", "__main__.py", "io/term.py", "io/image.py", "parallel/mesh.py", "parallel/shard.py"):
+        assert f"mcpt_tpu_torch/{name}" in rel
+    out = _run(
+        "import runpy, sys\n"
+        "for m in ('jax', 'jaxlib', 'mcpt_tpu'): sys.modules[m] = None\n"
+        f"sys.argv = ['mcpt_tpu_torch', 'render', 'scenes/cornell-box.obj', '--device', 'cpu', '--width', '16',\n"
+        f"            '--height', '16', '--spp', '1', '--bounces', '2', '--live', '--checkpoint-every', '1',\n"
+        f"            '--checkpoint', {str(tmp_path / 'ck.npz')!r}, '--out', {str(tmp_path / 'a.png')!r}]\n"
+        "try:\n"
+        "    runpy.run_module('mcpt_tpu_torch', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'mcpt_tpu') and sys.modules[m] is not None]\n"
+        "print('OK', bad)\n"
+    )
+    assert out.strip().splitlines()[-1] == "OK []"
+    assert '"nan_scrubbed": 0' in out and os.path.exists(tmp_path / "a.png") and os.path.exists(tmp_path / "ck.npz")
+
+
 def test_import_builds_nothing():
     """Importing every module of the package runs no compiler (nvcc or g++)
     and loads no library."""
